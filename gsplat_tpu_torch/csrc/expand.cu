@@ -1,0 +1,185 @@
+// Tight-plan row expansion (K3) and emission expansion (K4) for Hopper.
+//
+// K3 `expand_rows` replaces gsplat_tpu/ops/gather_pallas.py:_expand_rows_kernel
+// (:396, wrapper expand_rows :526).  One thread per row record r: it finds
+// its gaussian by binary search (the first g with gh_in[g] > r) and computes
+// the exact x-interval of the alpha >= 1/255 ellipse over the record's tile
+// row, in f32 and in the same order as the JAX kernel (:465-512).
+//
+// K4 `expand_emission` replaces gather_pallas.py:_expand2_kernel (:584,
+// wrapper expand_emission2 :721), unpacked layout.  One thread per emission
+// slot s: it finds its row record by binary search in rr_cum_in, computes
+// the tile key (:652-665) and copies gaussian gid's 6+D render fields.
+// Dummy records and slots past n_slots carry the sentinel key and zeros.
+//
+// What bounds them on the H100: both move little data per thread and do
+// little arithmetic (a ~20-step binary search, ~40 flops for K3, one
+// F-float copy for K4), so they are bound by device-memory bytes: K3 by
+// its [16, E] gaussian table and [5, R] output, K4 by its [F, cap] output.
+// The design keeps every write coalesced (thread i writes element i of each
+// output row) and lets neighbouring threads share the binary-search path
+// and the source gaussian, so those reads hit L1/L2.  The TPU's windowed
+// one-hot selection and 12-bit integer transport are not needed: a GPU
+// thread reads any address directly.
+//
+// Build with -fmad=false (see _build.py): every f32 operation of K3 rounds
+// on its own, as PyTorch's elementwise ops do, so floor/ceil match the
+// plain version exactly.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// Column order of K3's float table gg_f [10, E].
+enum { GF_MX, GF_MY, GF_A, GF_B, GF_C, GF_SIG, GF_YEXT, GF_XEXT, GF_DET, GF_AABB };
+// Column order of K3's int table gg_i [6, E].
+enum { GI_EX, GI_IN, GI_RY0, GI_IM, GI_TMINX, GI_TMAXX };
+// Row order of K4's record table rr [6, R].
+enum { RR_EX, RR_IN, RR_X0, RR_TY, RR_IM, RR_GID };
+
+// First index i in [0, n) with a[i] > v (n if none).
+__device__ __forceinline__ long long upper_bound(const int* __restrict__ a,
+                                                 long long n, long long v) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    long long mid = (lo + hi) >> 1;
+    if ((long long)a[mid] > v) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ float dx_hi(float u, float a, float b, float sig, float det) {
+  float disc = fmaxf(2.0f * sig * a - det * u * u, 0.0f);
+  return (-b * u + sqrtf(disc)) / a;
+}
+
+__device__ __forceinline__ float dx_lo(float u, float a, float b, float sig, float det) {
+  float disc = fmaxf(2.0f * sig * a - det * u * u, 0.0f);
+  return (-b * u - sqrtf(disc)) / a;
+}
+
+__global__ void expand_rows_kernel(const float* __restrict__ gg_f,
+                                   const int* __restrict__ gg_i, long long E,
+                                   const int* __restrict__ n_rows_p, long long row_cap,
+                                   float ts, int n_images, int* __restrict__ out) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= row_cap) return;
+  int x0 = 0, ty = 0, im = n_images, w = 0, gid = 0;
+  const long long n_rows = *n_rows_p;
+  const long long g = r < n_rows ? upper_bound(gg_i + GI_IN * E, E, r) : E;
+  if (g < E) {
+    gid = (int)g;
+    im = gg_i[GI_IM * E + g];
+    if (im == n_images) {  // dummy record: one sentinel slot
+      w = 1;
+    } else {
+      const int q = (int)(r - gg_i[GI_EX * E + g]);
+      ty = gg_i[GI_RY0 * E + g] + q;
+      const int tminx = gg_i[GI_TMINX * E + g];
+      const int tmaxx = gg_i[GI_TMAXX * E + g];
+      int x1;
+      if (gg_f[GF_AABB * E + g] > 0.5f) {
+        x0 = tminx;
+        x1 = tmaxx;
+      } else {
+        const float mx = gg_f[GF_MX * E + g];
+        const float my = gg_f[GF_MY * E + g];
+        const float a = fmaxf(gg_f[GF_A * E + g], 1e-12f);
+        const float b = gg_f[GF_B * E + g];
+        const float c = fmaxf(gg_f[GF_C * E + g], 1e-12f);
+        const float sig = gg_f[GF_SIG * E + g];
+        const float yext = gg_f[GF_YEXT * E + g];
+        const float xext = gg_f[GF_XEXT * E + g];
+        const float det = gg_f[GF_DET * E + g];
+
+        const float u0 = (float)ty * ts - my;
+        const float u1 = u0 + ts;
+        const float uc0 = fminf(fmaxf(u0, -yext), yext);
+        const float uc1 = fminf(fmaxf(u1, -yext), yext);
+        const float u_star_hi = -(b / c) * xext;
+        const float u_star_lo = (b / c) * xext;
+        float hi = fmaxf(dx_hi(uc0, a, b, sig, det), dx_hi(uc1, a, b, sig, det));
+        if (u_star_hi >= uc0 && u_star_hi <= uc1) hi = xext;
+        float lo = fminf(dx_lo(uc0, a, b, sig, det), dx_lo(uc1, a, b, sig, det));
+        if (u_star_lo >= uc0 && u_star_lo <= uc1) lo = -xext;
+        hi = hi + 1e-3f;
+        lo = lo - 1e-3f;
+        x0 = (int)floorf((mx + lo) / ts);
+        x0 = min(max(x0, tminx), max(tmaxx - 1, tminx));
+        x1 = (int)ceilf((mx + hi) / ts);
+        x1 = min(max(x1, x0 + 1), tmaxx);
+      }
+      w = max(x1 - x0, 1);
+    }
+  }
+  out[0 * row_cap + r] = x0;
+  out[1 * row_cap + r] = ty;
+  out[2 * row_cap + r] = im;
+  out[3 * row_cap + r] = w;
+  out[4 * row_cap + r] = gid;
+}
+
+__global__ void expand_emission_kernel(const int* __restrict__ rr, long long R,
+                                       const float* __restrict__ table_g, long long E,
+                                       int F, const int* __restrict__ n_slots_p,
+                                       long long cap, int tile_w, int tiles_per_im,
+                                       int sentinel, int* __restrict__ keys,
+                                       float* __restrict__ fields) {
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= cap) return;
+  int key = sentinel;
+  long long gid = -1;
+  if (s < (long long)*n_slots_p) {
+    const long long r = upper_bound(rr + RR_IN * R, R, s);
+    if (r < R) {
+      const int tx = rr[RR_X0 * R + r] + (int)(s - rr[RR_EX * R + r]);
+      const int k = rr[RR_IM * R + r] * tiles_per_im + rr[RR_TY * R + r] * tile_w + tx;
+      key = min(k, sentinel);
+      gid = rr[RR_GID * R + r];
+    }
+  }
+  keys[s] = key;
+  for (int f = 0; f < F; ++f)
+    fields[f * cap + s] = gid >= 0 ? table_g[f * E + gid] : 0.0f;
+}
+
+constexpr int kThreads = 256;
+
+unsigned int blocks_for(long long n) {
+  return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* gs_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// gg_f [10, E] f32, gg_i [6, E] i32, n_rows [1] i32 (device) -> out [5, row_cap]
+// i32 rows (x0, ty, im, w, gid).
+int gs_expand_rows(const float* gg_f, const int* gg_i, long long E,
+                   const int* n_rows, long long row_cap, float tile_size,
+                   int n_images, int* out, cudaStream_t stream) {
+  if (row_cap > 0)
+    expand_rows_kernel<<<blocks_for(row_cap), kThreads, 0, stream>>>(
+        gg_f, gg_i, E, n_rows, row_cap, tile_size, n_images, out);
+  return (int)cudaGetLastError();
+}
+
+// rr [6, R] i32 (cum_ex, cum_in, x0, ty, im, gid), table_g [F, E] f32,
+// n_slots [1] i32 (device) -> keys [cap] i32, fields [F, cap] f32.
+int gs_expand_emission(const int* rr, long long R, const float* table_g,
+                       long long E, int F, const int* n_slots, long long cap,
+                       int tile_w, int tiles_per_im, int sentinel, int* keys,
+                       float* fields, cudaStream_t stream) {
+  if (cap > 0)
+    expand_emission_kernel<<<blocks_for(cap), kThreads, 0, stream>>>(
+        rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel,
+        keys, fields);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
