@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving path on one NVIDIA card and hold each
-CUDA kernel against its plain PyTorch version.
+"""Drive the PyTorch port's two main paths, serving and training, on one
+NVIDIA card and hold each CUDA kernel against its plain PyTorch version.
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -14,17 +14,39 @@ Phases:
      GaussianInferenceScene -> Stage and renders 4 look-at requests at
      3840x2160 (tile 16, fast=False) after one sizing/warm-up pass.  Every
      kernel's launch count is set to 0 just before the 4 requests and read
-     just after; each must be > 0;
+     just after; K1, K3 and K4 must be > 0;
   3. reference: a small crop of the scene renders on the card and on the
      CPU (plain versions) and the images must agree (band tolerance);
   4. kernels: the rasterizer's stages rerun on request 0's camera and must
      give request 0's image bit for bit; K3 and K4 against their plain
      versions on those inputs (exact), K1 against its plain version at the
      serving shape and at 960x540 with tiles 8, 16 and 32 (max |d| <= 1e-4),
-     and each kernel timed at the serving shape with CUDA events;
+     K2 at 960x540 with tiles 8, 16 and 32 on K1's outputs (1e-4 of each
+     row's largest entry), and each forward
+     kernel timed at the serving shape with CUDA events;
   5. profile: each stage of a request timed alone, and a torch.profiler
      trace of 3 requests giving device time by kernel and the device's
-     busy and idle share.
+     busy and idle share;
+  6. training: the same points and colours, as an in-memory npz-like dict
+     with the 4 orbit cameras, go through gsplat_tpu_torch.trainer.Trainer
+     (MCMC strategy, cap_max = the number of points, batch 1, SH degree 3
+     reached within the run, refine from step 1 every 3 steps) for 9 steps
+     at 3840x2160, on targets rendered once beforehand.  Launch counts are
+     set to 0 just before train() and read just after; K1 to K5 must all be
+     > 0.  A recorder around the trainer's run_step and update takes each
+     step's ms, peak memory, loss and gradient check.  Required: finite loss and
+     gradients at every step, a lower loss at the last step than at the first
+     step on the same view, no isect_overflow, an alive count that did not
+     fall, a refine and a noise injection;
+  7. gradient reference: on the small crop, one forward and backward on the
+     card and one on the CPU (plain versions) give the same gradients of
+     every parameter;
+  8. training kernels: K2 and K5 against their plain versions on a training
+     step's own inputs at 3840x2160 (K2: 1e-4 of each row's largest entry,
+     the live pairs equal to K1's contributing pairs exactly; K5: 1e-5 of
+     each row's largest entry), each timed, K5 beside torch.segment_reduce;
+  9. training profile: the stages of 3 training steps by CUDA events, and a
+     torch.profiler trace of 3 steps.
 It prints one `kernels` JSON line and, last, the `ok` JSON line; any
 failure exits non-zero without it.  The script never falls back to the CPU.
 """
@@ -32,10 +54,13 @@ failure exits non-zero without it.  The script never falls back to the CPU.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,10 +68,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from gsplat_tpu_torch import _build
+from gsplat_tpu_torch import _build, rasterization
+from gsplat_tpu_torch import trainer as trainer_mod
 from gsplat_tpu_torch.ops import gather_kernel as gk
 from gsplat_tpu_torch.ops import rasterize as rz
 from gsplat_tpu_torch.ops import rasterize_kernel as rk
+from gsplat_tpu_torch.ops import segsum_kernel as sk
 from gsplat_tpu_torch.ops.projection import fully_fused_projection
 from gsplat_tpu_torch.ops.sh import spherical_harmonics
 from gsplat_tpu_torch.rendering import _campos_from_viewmats
@@ -63,13 +90,30 @@ SH_C0 = 0.28209479177387814
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 K1_FLOP_PER_PAIR = 21  # ~20 f32 operations and one exp per (pixel, slot)
+
+def k2_flop_per_live_pair(D: int) -> int:
+    """What K2's function needs for a live pair beyond K1's replay: 29 + 3D
+    f32 operations for the gradient terms (w, d, E, 1/(1-alpha), v_alpha,
+    v_sigma, v_op, the five geometry terms, D colour terms) and one add into
+    each of the 6+D per-slot sums.  How the kernel adds (its shuffle tree) is
+    its own cost, not the function's."""
+    return (29 + 3 * D) + (6 + D)
+
+
+TRAIN_STEPS = 9  # views 0,1,2 three times; SH degree 3 from step 6
+TRAIN_SH_INTERVAL = 2
+TRAIN_HEADROOM = 1.6  # capacity over the initial model's count: the splats grow as they train
 KERNELS = {
     "expand_rows": ("csrc/expand.cu", "gsplat_tpu/ops/gather_pallas.py:396"),
     "expand_emission": ("csrc/expand.cu", "gsplat_tpu/ops/gather_pallas.py:584"),
     "rasterize_fwd": ("csrc/rasterize_fwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:330"),
+    "rasterize_bwd": ("csrc/rasterize_bwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:475"),
+    "segment_rowsum": ("csrc/segsum.cu", "gsplat_tpu/ops/segsum_pallas.py:38"),
 }
 WRAPPERS = {"expand_rows": gk.expand_rows, "expand_emission": gk.expand_emission,
-            "rasterize_fwd": rk.rasterize_fwd}
+            "rasterize_fwd": rk.rasterize_fwd, "rasterize_bwd": rk.rasterize_bwd,
+            "segment_rowsum": sk.segment_rowsum}
+SERVING_KERNELS = ("expand_rows", "expand_emission", "rasterize_fwd")
 
 
 class Fail(Exception):
@@ -192,7 +236,8 @@ def forward_stages(scene: GaussianInferenceScene, vm, K, W: int, H: int, ts: int
         st["emitted"] = gk.expand_emission(*st["k4"])
 
     def sort():
-        st["k1"] = (*rz.sort_slots(*st["emitted"], T), 1, ts, tw, th, W, H)
+        fields_s, bounds, st["order"] = rz.sort_slots(*st["emitted"], T)
+        st["k1"] = (fields_s, bounds, 1, ts, tw, th, W, H)
 
     def composite():
         st["out"] = rk.rasterize_fwd(*st["k1"])
@@ -225,10 +270,10 @@ def evaluated_pairs(fields, bounds, n_images, tile, tiles_w, tiles_h, width, hei
     counts = (bounds[1:] - bounds[:-1]).long()
     total = 0
     for t0, t1, L in rk._tile_batches(counts[: n_images * tiles_w * tiles_h], tile * tile):
-        _, _, _, ev, (_, _, _, inside) = rk._composite_batch(
+        cb = rk._composite_batch(
             fields, starts, counts, t0, t1, L, tile, tiles_w, tiles_w * tiles_h, width, height
         )
-        total += int((ev * inside).sum())
+        total += int((cb.evaluated * cb.inside).sum())
     return total
 
 
@@ -240,9 +285,11 @@ def band_close(a: torch.Tensor, b: torch.Tensor, name: str, strict=3e-5, frac=0.
     return worst
 
 
-def cuda_timer(fn, reps: int) -> float:
-    """Mean ms per call over `reps` calls after one warm-up, by CUDA events."""
-    fn()
+def cuda_timer(fn, reps: int, warm: bool = True) -> float:
+    """Mean ms per call over `reps` calls, after one warm-up unless the
+    caller has run `fn` already, by CUDA events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -251,6 +298,495 @@ def cuda_timer(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_record(name, launches, err, ms, plain_ms, nbytes, nops, library_ms=None):
+    """One entry of the `kernels` line; the bound is the larger of the bytes
+    over the card's memory rate and the operations over its float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
+    return {
+        "name": name, "route": "cuda", "source": "gsplat_tpu_torch/" + KERNELS[name][0],
+        "replaces": KERNELS[name][1], "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
+    }
+
+
+def rows_close(got: torch.Tensor, want: torch.Tensor, tol: float, what: str, log) -> float:
+    """Every row of `got` within `tol` times the largest entry of the same
+    row of `want`, which must be above 0 (a row of zeros would hold nothing
+    to its value).  Logs the rows' largest entries; returns (the worst
+    ratio, the largest absolute difference)."""
+    scales = want.abs().amax(dim=1)
+    errs = (got - want).abs().amax(dim=1)
+    log(f"{what}: largest |entry| by row " + json.dumps([float(f"{v:.3g}") for v in scales])
+        + ", largest |d| by row " + json.dumps([float(f"{v:.3g}") for v in errs]))
+    require(bool((scales > 0).all()) and bool(torch.isfinite(want).all()),
+            f"{what}: a row of the plain version is zero or not finite")
+    ratios = errs / scales
+    r = int(ratios.argmax())
+    require(float(ratios[r]) <= tol,
+            f"{what}: row {r} differs by {float(ratios[r]):.3g} of its largest entry")
+    return float(ratios[r]), float(errs.max())
+
+
+@torch.no_grad()
+def check_bwd_kernel(args, what: str, log):
+    """K2 against its plain version on `args` (rasterize_bwd's positional
+    arguments).  Each row within 1e-4 of the row's own largest entry, which
+    must not be 0: the order of the sum over a tile's pixels differs.  On the
+    card the live pairs must equal the forward's contributing pairs and the
+    plain count exactly, and a second run must give the same bits.  Returns
+    (the largest absolute error, live pairs)."""
+    fields, bounds = args[0], args[1]
+    on_card = fields.device.type == "cuda"
+    n_tiles = bounds.shape[0] - 1
+    live = torch.empty(n_tiles, dtype=torch.int32, device=fields.device) if on_card else None
+    got = rk.rasterize_bwd(*args, live_counts=live)
+    want, n_live = rk.rasterize_bwd_plain(*args)
+    worst, err = rows_close(got, want, 1e-4, f"rasterize_bwd {what}", log)
+    require(bool((got[:, int(bounds[-1]):] == 0).all()), f"rasterize_bwd {what}: tail not zero")
+    if on_card:
+        kept = torch.empty_like(live)
+        rk.rasterize_fwd(*args[:8], pair_counts=kept)
+        require(torch.equal(live, kept),
+                f"rasterize_bwd {what}: live pairs differ from the forward's in "
+                f"{int((live != kept).sum())} tiles")
+        require(int(live.sum()) == n_live, f"rasterize_bwd {what}: live pairs != plain")
+        require(torch.equal(got, rk.rasterize_bwd(*args)), f"rasterize_bwd {what}: two runs differ")
+    log(f"rasterize_bwd {what}: max error {worst:.3g} of the row's largest entry, "
+        f"{n_live} live pairs")
+    return err, n_live
+
+
+class Probe:
+    """Stands in for `owner.name` while installed: keeps the first call's
+    arguments and times every call (CUDA events on the card, the host clock
+    on the CPU)."""
+
+    def __init__(self, owner, name: str, on_card: bool):
+        self.owner, self.name, self.on_card = owner, name, on_card
+        self.fn = getattr(owner, name)
+        self.first_args = None
+        self.spans = []
+        setattr(owner, name, self)
+
+    def __call__(self, *args, **kw):
+        if self.first_args is None:
+            self.first_args = args
+        if self.on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.fn(*args, **kw)
+            end.record()
+            self.spans.append((start, end))
+        else:
+            t = time.perf_counter()
+            out = self.fn(*args, **kw)
+            self.spans.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def restore(self):
+        setattr(self.owner, self.name, self.fn)
+
+    def total_ms(self) -> float:
+        if self.on_card:
+            torch.cuda.synchronize()
+            return sum(s.elapsed_time(e) for s, e in self.spans)
+        return sum(self.spans)
+
+
+def training_data(raw, viewmats, K, wh):
+    """The synthetic scene as the trainer's npz-like mapping: make_splats'
+    points and colours, the orbit cameras."""
+    colors = raw["sh0"][:, 0, :] * SH_C0 + 0.5
+    return dict(means3d=raw["means"], colors=(colors * 255.0).astype(np.float32),
+                viewmats=viewmats, Ks=np.tile(K[None], (len(viewmats), 1, 1)),
+                width=wh[0], height=wh[1])
+
+
+def make_trainer(dev, data, n_points: int, steps: int, result_dir: str, cap: int):
+    cfg = trainer_mod.Config(
+        result_dir=result_dir, max_steps=steps, batch_size=1, sh_degree=3,
+        sh_degree_interval=TRAIN_SH_INTERVAL, cap_max=n_points, refine_every=3,
+        eval_every=steps, save_every=steps, fixed_batch=True, seed=SEED,
+        isect_capacity=cap, row_capacity=cap, opacity_reg=0.01, scale_reg=0.01,
+    )
+    tr = trainer_mod.Trainer(cfg, data=data, device=dev)
+    tr.strategy = dataclasses.replace(tr.strategy, refine_start_iter=1)
+    return tr
+
+
+def size_training_capacities(tr, log) -> int:
+    """Size isect_capacity (and the row capacity, set equal) as the serving
+    phase does: a pass that may overflow gives the AABB bound, a second pass
+    within that bound the exact count.  Both the initial model and the
+    targets' opaque cloud are counted over every view; the model gets
+    TRAIN_HEADROOM on top, since its splats grow as they train."""
+    dev = tr.device
+    cfg = tr.cfg
+
+    def counts(render, cap):
+        cfg.isect_capacity = cfg.row_capacity = cap
+        out = []
+        for i in range(len(tr.viewmats)):
+            vm = torch.from_numpy(tr.viewmats[i : i + 1]).to(dev)
+            K = torch.from_numpy(tr.Ks[i : i + 1]).to(dev)
+            with torch.no_grad():
+                meta = render(vm, K)[2]
+            n_vis = int((meta["radii"] > 0).all(dim=-1).sum())
+            if bool(meta["isect_overflow"]):
+                out.append(int(meta["tiles_per_gauss"].sum()) + n_vis)
+            else:
+                out.append(int(meta["n_isects"]) + n_vis)
+        return max(out)
+
+    target = tr.target_splats()
+    renders = {
+        "model": lambda vm, K: tr.render(tr.params, tr.alive, vm, K, 0),
+        "targets": lambda vm, K: rasterization(
+            *target, vm, K, tr.width, tr.height, isect_capacity=cfg.isect_capacity,
+            row_capacity=cfg.row_capacity),
+    }
+    need = {}
+    for name, render in renders.items():
+        bound = counts(render, 1 << 16)  # overflows: the AABB bound
+        need[name] = counts(render, bound + 4096)  # exact
+    cap = max(int(need["model"] * TRAIN_HEADROOM), need["targets"]) + 4096
+    cfg.isect_capacity = cfg.row_capacity = cap
+    log(f"training capacities: model {need['model']}, targets {need['targets']} slots "
+        f"-> isect and rows {cap}")
+    return cap
+
+
+class StepRecorder:
+    """While installed on a Trainer, stands in for its `run_step` and
+    `update`: one record per step with the step's ms (host clock around
+    run_step, ending in a synchronize on the card), its peak device memory,
+    loss, alive count, overflow flag and whether every gradient was finite.
+    The finiteness check reads every gradient and waits for the card, so its
+    own time is taken out of the step's."""
+
+    def __init__(self, tr):
+        self.tr, self.records = tr, []
+        self.on_card = tr.device.type == "cuda"
+        self.run_step, self.update = tr.run_step, tr.update
+        tr.run_step, tr.update = self._run_step, self._update
+
+    def restore(self):
+        self.tr.run_step, self.tr.update = self.run_step, self.update
+
+    def _sync(self):
+        if self.on_card:
+            torch.cuda.synchronize()
+
+    def _update(self, params, opt_state, grads, *rest):
+        self._sync()
+        t = time.perf_counter()
+        self._finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        self._check_ms = (time.perf_counter() - t) * 1e3
+        return self.update(params, opt_state, grads, *rest)
+
+    def _run_step(self, *args):
+        self._sync()  # no earlier work may land in this step's time
+        if self.on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = self.run_step(*args)
+        self._sync()
+        ms = (time.perf_counter() - t) * 1e3 - self._check_ms
+        peak = torch.cuda.max_memory_allocated() / 2**30 if self.on_card else None
+        self.records.append(dict(
+            step=out["step"], view=out["view"], sh_degree=out["sh_degree"],
+            loss=float(out["loss"]), ms=ms, peak_gib=peak, n_alive=int(self.tr.alive.sum()),
+            overflow=bool(out["overflow"]), grads_finite=self._finite,
+            refined=out["refined"], noised=out["noised"]))
+        return out
+
+
+def training_phases(dev, raw, viewmats, K, wh, check_wh, n_cell, steps, k2_err_small, timer, log):
+    """Phases 6 to 9.  Returns (the step history, launch counts of train(),
+    the K2 and K5 records)."""
+    W, H = wh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    t0 = time.perf_counter()
+    tr = make_trainer(dev, training_data(raw, viewmats, K, wh), len(raw["means"]), steps, tmp,
+                      1 << 16)
+    log(f"trainer: {int(tr.alive.sum())} gaussians of capacity {tr.capacity}, "
+        f"{len(tr.train_views)} train views at {W}x{H}, set up in {time.perf_counter() - t0:.1f} s")
+    size_training_capacities(tr, log)
+
+    t0 = time.perf_counter()
+    targets = tr._make_npz_targets()  # rendered once, for train() and the probed steps
+    log(f"targets: {tuple(targets.shape)} rendered in {time.perf_counter() - t0:.1f} s")
+
+    # Phase 6: train() with the counts read around it.
+    recorder = StepRecorder(tr)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    tr.train(targets=targets)
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"train(): {time.perf_counter() - t0:.1f} s with eval and checkpoint")
+    recorder.restore()
+    shutil.rmtree(tmp)
+    hist = recorder.records
+    for r in hist:
+        log("train " + json.dumps(r))
+    log("training launches " + json.dumps(launches))
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched on the training path")
+    require(len(hist) == steps >= 6, f"{len(hist)} steps ran, {steps} asked")
+    for r in hist:
+        require(math.isfinite(r["loss"]), f"step {r['step']}: loss {r['loss']}")
+        require(r["grads_finite"], f"step {r['step']}: a gradient is not finite")
+        require(not r["overflow"], f"step {r['step']}: isect_overflow")
+    first = next(r for r in hist if r["view"] == hist[-1]["view"])
+    require(first["step"] < hist[-1]["step"] and hist[-1]["loss"] < first["loss"],
+            f"loss on view {first['view']} did not fall: {first['loss']} at step "
+            f"{first['step']}, {hist[-1]['loss']} at step {hist[-1]['step']}")
+    n0 = len(raw["means"])
+    require(all(b["n_alive"] >= a["n_alive"] for a, b in zip(hist, hist[1:]))
+            and hist[0]["n_alive"] >= n0, "the alive count fell")
+    require(any(r["refined"] for r in hist) and any(r["noised"] for r in hist),
+            "no refine or no noise injection ran")
+    require(hist[-1]["sh_degree"] == 3, "SH degree 3 was not reached")
+    require(all(bool(torch.isfinite(v).all()) for v in tr.params.values()),
+            "a parameter is not finite after training")
+
+    # Phase 7: the gradients of a small crop on this device and on the CPU.
+    gradient_reference(dev, raw, n_cell, check_wh, log)
+
+    # Phases 8 and 9 on steps taken by hand from the trained state.
+    records = training_kernels_and_profile(tr, targets, launches, k2_err_small, timer, log)
+    return hist, launches, records
+
+
+def gradient_reference(dev, raw, n_cell, check_wh, log) -> None:
+    """One forward and backward of the trainer's loss on a small crop, on
+    `dev` and on the CPU (plain versions), from the same initial parameters.
+    The gradients are sums over pixels and slots taken in another order, and
+    the card's exp differs from the CPU's by ulps, which can move a (pixel,
+    gaussian) pair across the alpha gate: a band relative to each tensor's
+    largest entry g, at most 1% of the entries off by more than 3e-4 g, none
+    by more than 5e-2 g.  The gradients of a mean loss are far below 1, so
+    this is much tighter than the JAX suite's 3e-4 * max(1, g)."""
+    sub = {k: v[: max(n_cell // 8, 1)] for k, v in raw.items()}
+    ref_wh = (check_wh[0] // 2, check_wh[1] // 2)
+    vms, K = look_at_cameras(sub["means"], 2, *ref_wh)
+    data = training_data(sub, vms, K, ref_wh)
+    grads = []
+    cap = None
+    for d in (dev, torch.device("cpu")):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ref_")
+        tr = make_trainer(d, data, len(sub["means"]), 6, tmp, cap or 1 << 16)
+        shutil.rmtree(tmp)
+        # The trainer starts isotropic with zero higher bands, where the image
+        # depends on neither the quats nor shN and their gradients are
+        # rounding noise.  Take the scene's own quats and higher bands and
+        # stretch each gaussian by its own axis ratios (at most e each way).
+        stretch = np.clip(sub["scales"] - sub["scales"].mean(axis=1, keepdims=True), -1.0, 1.0)
+        n = len(sub["means"])
+        tr.params["quats"][:n].copy_(torch.from_numpy(sub["quats"]))
+        tr.params["scales"][:n].add_(torch.from_numpy(stretch).to(d))
+        tr.params["shN"][:n].copy_(torch.from_numpy(sub["shN"]))
+        cap = cap or size_training_capacities(tr, log)
+        targets = tr._make_npz_targets()
+        vm = torch.from_numpy(tr.viewmats[:1]).to(d)
+        Kt = torch.from_numpy(tr.Ks[:1]).to(d)
+        loss, g, g_screen, _, vis, overflow = tr.train_step(tr.params, tr.alive, vm, Kt,
+                                                            targets[:1], 3)
+        require(not bool(overflow), "gradient reference: isect_overflow")
+        grads.append({**{k: v.cpu() for k, v in g.items()}, "means2d": g_screen.cpu(),
+                      "loss": float(loss), "n_vis": int(vis.sum())})
+    a, b = grads
+    require(abs(a["loss"] - b["loss"]) < 1e-5, f"gradient reference: loss {a['loss']} vs {b['loss']}")
+    require(b["n_vis"] > 0, "gradient reference: nothing visible")
+    worst, faults = {}, []
+    for k in ("means", "quats", "scales", "opacities", "sh0", "shN", "means2d"):
+        scale = float(b[k].abs().max())
+        require(scale > 0 and bool(torch.isfinite(a[k]).all()), f"gradient reference: {k} degenerate")
+        diff = (a[k] - b[k]).abs()
+        bad = float((diff > 3e-4 * scale).float().mean())
+        worst[k] = float(diff.max()) / scale
+        if not (bad < 0.01 and worst[k] < 5e-2):
+            faults.append(f"{k}: {bad:.4f} of entries over 3e-4 g, max {worst[k]:.3g} g")
+    log(f"gradient reference: {len(sub['means'])} gaussians at {ref_wh[0]}x{ref_wh[1]}, loss "
+        f"{a['loss']:.6f}; max |d| / max |g| " + json.dumps(worst))
+    require(not faults, "gradient reference: " + "; ".join(faults))
+
+
+def training_kernels_and_profile(tr, targets, launches, k2_err_small, timer, log):
+    """Three more steps, taken by hand through the trainer's own methods with
+    probes on the rasterizer's stages: K2's and K5's arguments in a real
+    step, each stage's time, then the kernels against their plain versions."""
+    probes, stage_state = probe_training_steps(tr, targets, log)
+    with torch.no_grad():
+        records = check_and_time_training_kernels(tr, probes, launches, k2_err_small, timer, log)
+    if tr.device.type == "cuda":
+        profile_training_step(tr, *stage_state, timer, log)
+    return records
+
+
+def probe_training_steps(tr, targets, log):
+    dev = tr.device
+    on_card = dev.type == "cuda"
+    probes = {name: Probe(owner, name, on_card) for owner, name in (
+        (rz, "compact_by_depth"), (rz, "make_tight_plan"), (rz, "field_table"),
+        (rz, "expand_emission"), (rz, "sort_slots"), (rz, "rasterize_fwd"),
+        (rz, "rasterize_bwd"), (rz, "unsort_slots"), (rz, "segment_rowsum"),
+        (rz, "unpermute_gaussians"), (trainer_mod, "l1_loss"), (trainer_mod, "ssim_loss"),
+        (trainer_mod, "selective_adam_update"),
+    )}
+    vms = torch.from_numpy(tr.viewmats[tr.train_views]).to(dev)
+    Ks = torch.from_numpy(tr.Ks[tr.train_views]).to(dev)
+    clock = (lambda: torch.cuda.Event(enable_timing=True)) if on_card else None
+    phases = collections.defaultdict(float)
+    n_steps = 3
+    marks = []
+    for i in range(n_steps):
+        v = i % len(tr.train_views)
+        t = [time.perf_counter()]
+        ev = []
+
+        def mark():
+            if on_card:
+                e = clock()
+                e.record()
+                ev.append(e)
+            else:
+                t.append(time.perf_counter())
+
+        mark()
+        leaves = {k: p.detach().requires_grad_() for k, p in tr.params.items()}
+        loss, meta = tr.loss_fn(leaves, tr.alive, vms[v : v + 1], Ks[v : v + 1],
+                                targets[v : v + 1], 3)
+        mark()
+        loss.backward()
+        mark()
+        grads = {k: p.grad for k, p in leaves.items()}
+        visibility = (meta["radii"] > 0).all(dim=-1).any(dim=0) & tr.alive
+        tr.params, tr.opt_state = tr.update(tr.params, tr.opt_state, grads, visibility, 0.01)
+        mark()
+        moments = (tr.opt_state.mu, tr.opt_state.nu)
+        tr.params, moments, tr.alive = tr.strategy.refine(tr.params, moments, tr.alive,
+                                                          tr.strategy_state, tr.generator)
+        mark()
+        tr.params = tr.strategy.inject_noise(tr.params, tr.alive, tr.lrs["means"] * 0.01,
+                                             tr.generator)
+        mark()
+        del leaves, grads, loss, meta
+        marks.append(ev if on_card else t[1:])
+    if on_card:
+        torch.cuda.synchronize()
+    for m in marks:
+        gaps = ([a.elapsed_time(b) for a, b in zip(m, m[1:])] if on_card
+                else [(b - a) * 1e3 for a, b in zip(m, m[1:])])
+        for name, ms in zip(("forward + loss", "backward", "Adam", "refine", "noise"), gaps):
+            phases[name] += ms / n_steps
+    for p in probes.values():
+        p.restore()
+    ms = {name: p.total_ms() / n_steps for name, p in probes.items()}
+    fwd_raster = sum(ms[k] for k in ("compact_by_depth", "make_tight_plan", "field_table",
+                                     "expand_emission", "sort_slots", "rasterize_fwd"))
+    loss_fwd = ms["l1_loss"] + ms["ssim_loss"]
+    bwd_raster = sum(ms[k] for k in ("rasterize_bwd", "unsort_slots", "segment_rowsum",
+                                     "unpermute_gaussians"))
+    stages = [
+        ("forward: projection + SH (rest of forward)", phases["forward + loss"] - fwd_raster - loss_fwd),
+        ("forward: compaction sort", ms["compact_by_depth"]),
+        ("forward: tight plan (incl. K3)", ms["make_tight_plan"]),
+        ("forward: field table", ms["field_table"]),
+        ("forward: emission K4", ms["expand_emission"]),
+        ("forward: slot sort + spans", ms["sort_slots"]),
+        ("forward: composite K1", ms["rasterize_fwd"]),
+        ("loss: clip, l1, ssim (forward)", loss_fwd),
+        ("backward: K2", ms["rasterize_bwd"]),
+        ("backward: unsort to emission order", ms["unsort_slots"]),
+        ("backward: K5", ms["segment_rowsum"]),
+        ("backward: un-permute", ms["unpermute_gaussians"]),
+        ("backward: autograd of loss, projection + SH", phases["backward"] - bwd_raster),
+        ("Adam (selective, in place)", phases["Adam"]),
+        ("strategy: refine", phases["refine"]),
+        ("strategy: noise", phases["noise"]),
+        ("sum of one step's stages", sum(phases.values())),
+    ]
+    for name, v in stages:
+        log(json.dumps({"train_stage": name, "ms": v}))
+    return probes, (vms, Ks, targets)
+
+
+def check_and_time_training_kernels(tr, probes, launches, k2_err_small, timer, log):
+    """Phase 8: K2 and K5 on the first probed step's own arguments."""
+    on_card = tr.device.type == "cuda"
+    k2_args = probes["rasterize_bwd"].first_args
+    k5_args = probes["segment_rowsum"].first_args
+    W, H = tr.width, tr.height
+    e2, n_live = check_bwd_kernel(k2_args, f"tile {TILE} at {W}x{H} (training step)", log)
+    got = sk.segment_rowsum(*k5_args)
+    want = sk.segment_rowsum_plain(*k5_args)
+    # both add a segment serially in slot order; the plain version's adds are
+    # batched over segments but each is the same float32 add
+    worst, e5 = rows_close(got, want, 1e-5, "segment_rowsum (training step)", log)
+    log(f"segment_rowsum (training step): max error {worst:.3g} of the row's largest entry, "
+        f"{k5_args[1].shape[0] - 1} segments")
+
+    fields, bounds = k2_args[0], k2_args[1]
+    F, n_sorted = fields.shape[0], int(bounds[-1])
+    D = F - 6
+    pairs = evaluated_pairs(*k2_args[:8])
+    k2_bytes = 4 * (2 * F * n_sorted + bounds.shape[0] + 2 * W * H * (D + 1))
+    k2_ops = K1_FLOP_PER_PAIR * pairs + k2_flop_per_live_pair(D) * n_live
+    data, seg_bounds = k5_args
+    n_seg = seg_bounds.shape[0] - 1
+    n_summed = int(seg_bounds[-1])
+    k5_bytes = 4 * (data.shape[0] * n_summed + data.shape[0] * n_seg + n_seg + 1)
+    log(f"rasterize_bwd at {W}x{H}: {pairs} pairs evaluated, {n_live} live, {n_sorted} slots; "
+        f"segment_rowsum: {n_summed} slots in {n_seg} segments, {data.shape[0]} rows")
+
+    library_ms = None
+    if on_card:
+        # the one PyTorch call that computes K5's function; used nowhere in the port
+        data_t = data[:, :n_summed].t().contiguous()
+        offsets = seg_bounds.long()
+        try:
+            lib = torch.segment_reduce(data_t, "sum", offsets=offsets, axis=0)
+            e = float((lib.t() - got).abs().max())
+            library_ms = timer(lambda: torch.segment_reduce(data_t, "sum", offsets=offsets, axis=0),
+                               5, warm=False)
+            log(f"torch.segment_reduce on the same data: max |d| to K5 {e:.3g}")
+        except (RuntimeError, NotImplementedError) as exc:
+            log(f"torch.segment_reduce does not run here: {str(exc)[:200]}")
+        del data_t
+
+    records = [
+        kernel_record("rasterize_bwd", launches["rasterize_bwd"], max(e2, k2_err_small),
+                      timer(lambda: rk.rasterize_bwd(*k2_args), 10, warm=False),
+                      timer(lambda: rk.rasterize_bwd_plain(*k2_args), 1, warm=False),
+                      k2_bytes, k2_ops),
+        kernel_record("segment_rowsum", launches["segment_rowsum"], e5,
+                      timer(lambda: sk.segment_rowsum(*k5_args), 20, warm=False),
+                      timer(lambda: sk.segment_rowsum_plain(*k5_args), 1, warm=False),
+                      k5_bytes, 0, library_ms),
+    ]
+    for rec in records:
+        rec["launches_training"] = rec["launches"]
+    return records
+
+
+def profile_training_step(tr, vms, Ks, targets, timer, log) -> None:
+    """Phase 9's trace: one training step without a refine, timed whole and
+    traced with torch.profiler."""
+
+    def one_step():
+        grads_and = tr.train_step(tr.params, tr.alive, vms[:1], Ks[:1], targets[:1], 3)
+        tr.params, tr.opt_state = tr.update(tr.params, tr.opt_state, grads_and[1], grads_and[4], 0.01)
+        tr.params = tr.strategy.inject_noise(tr.params, tr.alive, tr.lrs["means"] * 0.01,
+                                             tr.generator)
+
+    step_ms = timer(one_step, 3)
+    log(json.dumps({"train_stage": "whole step without refine", "ms": step_ms}))
+    device_profile(one_step, step_ms, log, "step")
 
 
 class Serving:
@@ -292,8 +828,10 @@ class Serving:
             self.request(vm)
 
 
-def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, log=print):
-    """All phases on `dev`; returns the serving records and the `kernels` records."""
+def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, log=print,
+        train_steps: int = TRAIN_STEPS):
+    """All phases on `dev`; returns the serving records, the training
+    history and the `kernels` records."""
     t0 = time.perf_counter()
     sv = Serving(dev, n_cell, grid, serve_wh)
     raw, scene, viewmats, K = sv.raw, sv.scene, sv.viewmats, sv.K
@@ -333,8 +871,8 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         del img, alpha, meta  # the next request's peak holds nothing of this one
     launches = {name: w.launches for name, w in WRAPPERS.items()}
     log("serving launches " + json.dumps(launches))
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the serving path")
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the serving path")
 
     # Reference: a small crop renders on this device and on the CPU alike.
     sub = {k: v[: max(n_cell // 8, 1)] for k, v in raw.items()}
@@ -380,9 +918,18 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         return e
 
     err["rasterize_fwd"] = k1_err(serve_in, f"tile {TILE} at {W}x{H} (serving)")
+    err["rasterize_bwd"] = 0.0
     for ts in (8, 16, 32):
-        k1_err(kernel_inputs(scene, viewmats[0], scaled_K(K, check_wh[0] / W), *check_wh, ts,
-                             cap, row_cap), f"tile {ts} at {check_wh[0]}x{check_wh[1]}")
+        what = f"tile {ts} at {check_wh[0]}x{check_wh[1]}"
+        ci = kernel_inputs(scene, viewmats[0], scaled_K(K, check_wh[0] / W), *check_wh, ts,
+                           cap, row_cap)
+        k1_err(ci, what)
+        # K2 on K1's own outputs, with a random cotangent made from the seed
+        g = torch.Generator(device=dev).manual_seed(SEED + ts)
+        v_pix = torch.randn(ci["out"][0].shape, generator=g, device=dev)
+        v_t = torch.randn(ci["out"][1].shape, generator=g, device=dev)
+        e, _ = check_bwd_kernel((*ci["k1"], v_pix, v_t, *ci["out"]), what, log)
+        err["rasterize_bwd"] = max(err["rasterize_bwd"], e)
 
     # Times at the serving shapes, and the least time the card could take.
     n_live, n_rows, n_slots = serve_in["n_live"], serve_in["n_rows"], serve_in["n_slots"]
@@ -398,19 +945,11 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     calls = {"expand_rows": (gk.expand_rows, gk.expand_rows_plain, serve_in["k3"]),
              "expand_emission": (gk.expand_emission, gk.expand_emission_plain, serve_in["k4"]),
              "rasterize_fwd": (rk.rasterize_fwd, rk.rasterize_fwd_plain, serve_in["k1"])}
-    records = []
-    for name, (fn, plain, args) in calls.items():
-        nbytes, nops = work[name]
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
-        rec = {
-            "name": name, "route": "cuda", "source": "gsplat_tpu_torch/" + KERNELS[name][0],
-            "replaces": KERNELS[name][1], "launches": launches[name],
-            "max_abs_err": err[name], "ms": timer(lambda: fn(*args), 20),
-            "plain_ms": timer(lambda: plain(*args), 2),
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        }
-        records.append(rec)
+    records = [
+        kernel_record(name, launches[name], err[name], timer(lambda: fn(*args), 20),
+                      timer(lambda: plain(*args), 2), *work[name])
+        for name, (fn, plain, args) in calls.items()
+    ]
     log(f"rasterize_fwd at {W}x{H}: {pairs} (pixel, slot) pairs evaluated, {n_slots} slots")
     del serve_in
 
@@ -422,29 +961,38 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     for name, ms in times.items():
         log(json.dumps({"stage": name, "ms": ms}))
     if dev.type == "cuda":
-        device_profile(lambda: sv.request(viewmats[0]), times["whole request"], log)
-    return serve, records
+        device_profile(lambda: sv.request(viewmats[0]), times["whole request"], log, "request")
+    del sv, scene, stages
+
+    # Training: the same points and colours through the trainer.
+    history, train_launches, train_records = training_phases(
+        dev, raw, viewmats, K, (W, H), check_wh, n_cell, train_steps, err["rasterize_bwd"],
+        timer, log)
+    for rec in records:
+        rec["launches_training"] = train_launches[rec["name"]]
+    return serve, history, records + train_records
 
 
-def device_profile(request, request_ms: float, log, n_req: int = 3) -> None:
-    """A torch.profiler trace of `n_req` requests: device time by kernel, and
-    the device's busy and idle share of the unprofiled request time."""
+def device_profile(unit_fn, unit_ms: float, log, unit: str, n: int = 3) -> None:
+    """A torch.profiler trace of `n` units of work (requests or training
+    steps): device time by kernel, and the device's busy and idle share of
+    the unprofiled time of one unit."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_req):
-            request()
+        for _ in range(n):
+            unit_fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     require(bool(kernels), "the profiler recorded no device time")
     by_name = collections.defaultdict(float)
     for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_req
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
     busy = sum(by_name.values())
-    log(json.dumps({"device_ms_per_request": busy, "request_ms": request_ms,
-                    "device_idle_share": 1.0 - busy / request_ms,
-                    "kernel_launches_per_request": len(kernels) / n_req}))
+    log(json.dumps({f"device_ms_per_{unit}": busy, f"{unit}_ms": unit_ms,
+                    "device_idle_share": 1.0 - busy / unit_ms,
+                    f"kernel_launches_per_{unit}": len(kernels) / n}))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(json.dumps({"kernel": name[:100], "ms_per_request": ms}))
+        log(json.dumps({"kernel": name[:100], f"ms_per_{unit}": ms}))
 
 
 def main() -> int:
@@ -463,8 +1011,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain composite's colour sum
     torch.backends.cudnn.allow_tf32 = False
     try:
-        _, records = run(torch.device("cuda"), N_CELL, GRID, SERVE_WH, CHECK_WH, cuda_timer,
-                         log=lambda m: print(m, flush=True))
+        _, _, records = run(torch.device("cuda"), N_CELL, GRID, SERVE_WH, CHECK_WH, cuda_timer,
+                            log=lambda m: print(m, flush=True))
     except Fail as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

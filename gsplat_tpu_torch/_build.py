@@ -3,8 +3,10 @@
 Each `csrc/<name>.cu` becomes its own shared library with a plain C
 interface, compiled by `nvcc` for Hopper (`sm_90a`) at first use into
 `build/gsplat_tpu_torch/` at the repository root.  All sources build in
-parallel, one `nvcc` each.  A library's file name carries a hash of its
-source and flags, so an edited source never loads a stale build.
+parallel, one `nvcc` each.  Shared device code lives in `csrc/*.cuh`.  A
+library's file name carries a hash of its source, of every `csrc` header it
+includes (directly or through another header) and of its flags, so an
+edited source or header never loads a stale build.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check`
 turns a non-zero code into an exception.  Nothing here falls back: a
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,8 +42,14 @@ COMMON_FLAGS = [
 # Division and sqrt stay IEEE in both (no --use_fast_math anywhere).
 SOURCE_FLAGS: Dict[str, List[str]] = {
     "expand": ["-fmad=false", "-prec-div=true", "-prec-sqrt=true"],
+    # rasterize_fwd and rasterize_bwd share csrc/composite.cuh and must be
+    # compiled alike: the backward replays the forward's gate and stop
+    # decisions, which one rounding would flip.
     "rasterize_fwd": [],
+    "rasterize_bwd": [],
+    "segsum": [],
 }
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -53,9 +62,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on the GPU machine")
 
 
+def _sources_of(name: str) -> List[Path]:
+    """`csrc/<name>.cu` and the csrc headers it includes, transitively."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for path in _sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(COMMON_FLAGS + SOURCE_FLAGS[name]).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -109,7 +131,15 @@ _SIGNATURES = {
     },
     "rasterize_fwd": {
         "gs_rasterize_fwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT,
-                             _INT, _INT, _VOID, _VOID, _VOID],
+                             _INT, _INT, _VOID, _VOID, _VOID, _VOID],
+    },
+    "rasterize_bwd": {
+        "gs_rasterize_bwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT,
+                             _INT, _INT, _VOID, _VOID, _VOID, _VOID, _VOID,
+                             _VOID, _VOID],
+    },
+    "segsum": {
+        "gs_segment_rowsum": [_VOID, _LL, _INT, _VOID, _LL, _VOID, _VOID],
     },
 }
 

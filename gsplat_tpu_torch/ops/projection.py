@@ -22,6 +22,7 @@ MAX_ALPHA = 0.99
 TRANSMITTANCE_THRESHOLD = 1e-4
 MIN_COMPENSATION = 0.005
 GAUSSIAN_EXTEND = 3.33
+_TZ_EPS = 1e-6  # |depth| below this never renders (near planes are far larger)
 
 
 def _covar_world(covars, quats, scales) -> torch.Tensor:
@@ -74,6 +75,12 @@ def _persp_proj(tx, ty, tz, S, Ks, width, height):
     lim_x_neg = cx / fx + 0.3 * tan_fovx
     lim_y_pos = (height - cy) / fy + 0.3 * tan_fovy
     lim_y_neg = cy / fy + 0.3 * tan_fovy
+    # A gaussian on the camera plane (|tz| ~ 0) is culled by the near plane,
+    # but 1/tz and tx/tz would hand autograd inf and NaN local derivatives,
+    # and zero cotangents times those are NaN in the parameters.  Such rows
+    # project with tz = 1 instead: finite values that nothing renders, and no
+    # gradient through tz.
+    tz = torch.where(tz.abs() < _TZ_EPS, 1.0, tz)
     txc = tz * torch.minimum(torch.maximum(tx / tz, -lim_x_neg), lim_x_pos)
     tyc = tz * torch.minimum(torch.maximum(ty / tz, -lim_y_neg), lim_y_pos)
 
@@ -101,7 +108,8 @@ def _fisheye_proj(tx, ty, tz, S, Ks, width, height):
     s00, s01, s02, s11, s12, s22 = S
     fx, fy, cx, cy = _intrinsics(Ks)
     eps = 1e-7
-    xy_len = torch.sqrt(tx * tx + ty * ty) + eps
+    # the clamp keeps sqrt's derivative finite for a mean on the optical axis
+    xy_len = torch.sqrt(torch.clamp(tx * tx + ty * ty, min=1e-24)) + eps
     theta = torch.atan2(xy_len, tz + eps)
     m2x = tx * fx * theta / xy_len + cx
     m2y = ty * fy * theta / xy_len + cy
@@ -162,7 +170,7 @@ def fully_fused_projection(
     """
     if camera_model == "lidar":
         raise NotImplementedError(
-            "camera_model='lidar' belongs to the cameras/UT slice (ROADMAP Queue 1 item 13)"
+            "camera_model='lidar' belongs to the cameras/UT slice (ROADMAP Queue 1 item 9)"
         )
     if camera_model not in _CAMERAS:
         raise ValueError(f"unsupported camera_model: {camera_model!r}")

@@ -1,7 +1,8 @@
-"""rasterize_to_pixels: the tile rasterization op (forward).
+"""rasterize_to_pixels: the tile rasterization op, forward and backward.
 
-Port of `gsplat_tpu/ops/rasterize.py` (make_tight_plan :196-342, the
-forward of rasterize_to_pixels :630-784).  The forward runs:
+Port of `gsplat_tpu/ops/rasterize.py` (make_tight_plan :196-342, _core_fwd
+:431-495, _core_bwd :498-624, rasterize_to_pixels :630-784).  The forward
+runs:
 
   1. the compaction sort: visible gaussians first, front to back (a stable
      sort on where(visible, depth, inf), the JAX package's (culled, depth,
@@ -20,7 +21,23 @@ forward of rasterize_to_pixels :630-784).  The forward runs:
 Capacities are static, as in the JAX package: `isect_capacity` bounds the
 emission slots and `row_capacity` the row records; `isect_overflow` says
 whether either truncated.  Sorts, cumsum, searchsorted and the gathers are
-PyTorch calls.  The backward belongs to the training slice.
+PyTorch calls.
+
+The backward (`_RasterizeCore.backward`) runs:
+
+  6. the composite's backward (kernel K2, rasterize_kernel.py:rasterize_bwd):
+     per-slot gradients at the sorted positions, no atomics;
+  7. one scatter through the slot sort's permutation back to emission
+     order, where a gaussian's slots are contiguous (the JAX package sorts
+     by emission position instead; a permutation either way);
+  8. the per-gaussian reduction (kernel K5, segsum_kernel.py:segment_rowsum)
+     over the plan's slot boundaries, clamped to the live slots, so that
+     truncated slots get no gradient;
+  9. one scatter through the compaction permutation back to the caller's
+     order (the JAX package's third sort).
+
+Every step is a permutation or a fixed-order sum, so two runs give the same
+bits.
 """
 
 from __future__ import annotations
@@ -31,7 +48,8 @@ import torch
 
 from .gather_kernel import expand_emission, expand_rows
 from .projection import ALPHA_THRESHOLD
-from .rasterize_kernel import rasterize_fwd
+from .rasterize_kernel import rasterize_bwd, rasterize_fwd
+from .segsum_kernel import segment_rowsum
 
 TILE = 16  # default tile size (pixels per side)
 CH = 512  # capacity rounding unit, as the JAX package's gather_pallas.CH
@@ -167,6 +185,9 @@ class TightPlan(NamedTuple):
 
     rr: torch.Tensor  # [6, row_cap] i32 (gather_kernel.RR_* rows)
     n_slots: torch.Tensor  # [1] i32 live emission slots (<= cap_total)
+    # [E+1] i32 emission-slot boundaries per gaussian, <= n_slots; None unless
+    # the caller asked for them (only the backward reads them)
+    slot_bounds: Optional[torch.Tensor]
     dummy: torch.Tensor  # [E] bool: no real coverage
     n_isects: torch.Tensor  # [] tight intersections before truncation
     overflow: torch.Tensor  # [] bool
@@ -175,11 +196,13 @@ class TightPlan(NamedTuple):
 def make_tight_plan(
     means2d, radii, conics, opacities, im_g, n_live, n_images: int,
     tile_size: int, tile_width: int, tile_height: int, cap_total: int, row_cap: int,
+    with_slot_bounds: bool = False,
 ) -> TightPlan:
     """Row records for the compacted gaussians (rasterize.py:196-342).
 
     Dummy records and slots count against the capacities, so n_isects and
-    isect_overflow agree with the JAX package.
+    isect_overflow agree with the JAX package.  `with_slot_bounds` adds the
+    per-gaussian slot boundaries that the backward's reduction needs.
     """
     geo = row_geometry(
         means2d, radii, conics, opacities, im_g, n_live, n_images,
@@ -192,9 +215,22 @@ def make_tight_plan(
     rr_cum_ex = rr_cum_in - w
     total = rr_cum_in[-1]
     n_dummy = (geo.dummy & geo.prefix).sum().to(torch.int32)
+    n_slots = torch.clamp(total, max=cap_total).reshape(1).to(torch.int32)
+    slot_bounds = None
+    if with_slot_bounds:
+        # The emission is gaussian-major over contiguous row records, so a
+        # gaussian's slots are the run between its first record's and its next
+        # neighbour's exclusive slot count; slots past n_slots were truncated
+        # (rasterize.py:576-588).  A dummy gaussian owns one slot that lies in
+        # no tile's span.
+        gh_ex = geo.gg_i[0]  # gather_kernel.GI_EX: first row record per gaussian
+        row_bounds = torch.clamp(torch.cat([gh_ex, geo.n_rows]), 0, row_cap)
+        cum0 = torch.cat([torch.zeros_like(rr_cum_in[:1]), rr_cum_in])
+        slot_bounds = torch.minimum(cum0[row_bounds.long()], n_slots)
     return TightPlan(
         rr=torch.stack([rr_cum_ex, rr_cum_in, x0, ty, im, gid]).contiguous(),
-        n_slots=torch.clamp(total, max=cap_total).reshape(1).to(torch.int32),
+        n_slots=n_slots,
+        slot_bounds=slot_bounds,
         dummy=geo.dummy,
         n_isects=total - torch.minimum(n_dummy, total),
         overflow=(total > cap_total) | geo.row_overflow,
@@ -213,38 +249,83 @@ def field_table(comp: Compacted, dummy: torch.Tensor) -> torch.Tensor:
 def sort_slots(keys: torch.Tensor, fields: torch.Tensor, n_tiles: int):
     """Stable sort of the emission slots by tile key, then per-tile spans.
 
-    Returns (sorted fields [F, cap], bounds int32 [n_tiles+1]).
+    Returns (sorted fields [F, cap], bounds int32 [n_tiles+1], order int64
+    [cap]: the emission slot at each sorted position).
     """
     keys_s, order = torch.sort(keys, stable=True)
     fields_s = fields.index_select(1, order)
     probes = torch.arange(n_tiles + 1, dtype=torch.int32, device=keys.device)
     bounds = torch.searchsorted(keys_s, probes, side="left", out_int32=True)
-    return fields_s, bounds
+    return fields_s, bounds, order
+
+
+def unsort_slots(v_slot: torch.Tensor, order: torch.Tensor, absgrad: bool) -> torch.Tensor:
+    """Per-slot gradients from sorted to emission order, where a gaussian's
+    slots are contiguous: `order` is a permutation of all slots, so this is
+    one scatter.  With `absgrad` two more rows hold |v_x| and |v_y|
+    (rasterize.py:567-568)."""
+    F = v_slot.shape[0]
+    rows = F + (2 if absgrad else 0)
+    v_emit = torch.empty((rows, v_slot.shape[1]), dtype=v_slot.dtype, device=v_slot.device)
+    v_emit[:F].index_copy_(1, order, v_slot)
+    if absgrad:
+        torch.abs(v_emit[0:2], out=v_emit[F:])
+    return v_emit
+
+
+def unpermute_gaussians(vg: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Per-gaussian gradient rows [rows, E] in compaction order -> [E, rows]
+    in the caller's order (the inverse of the compaction sort)."""
+    v_gauss = torch.empty((perm.shape[0], vg.shape[0]), dtype=vg.dtype, device=vg.device)
+    return v_gauss.index_copy_(0, perm, vg.t())
 
 
 class _RasterizeCore(torch.autograd.Function):
-    """Emission, sort and composite.  The differentiable inputs (means2d,
-    conics, colors, opacities) fix the gradient layout for the training
-    slice; the forward reads the compacted field table."""
+    """Emission, sort and composite, with the backward through K2 and K5.
+
+    The differentiable inputs (means2d, conics, colors, opacities, in the
+    caller's order) fix the gradient layout; the forward reads the compacted
+    field table.  `means2d_abs` is the absgrad carrier: its value is unused
+    and, under `absgrad`, its gradient is the per-slot sum of |v_x|, |v_y|.
+    `slot_bounds` is None when no gradient is asked for (rasterize_to_pixels
+    decides); the forward then keeps nothing for a backward.
+    """
 
     @staticmethod
-    def forward(ctx, means2d, conics, colors, opacities, table_g, rr, n_slots,
-                cap_total, tile_size, tile_width, tile_height, n_images, width, height):
+    def forward(ctx, means2d, conics, colors, opacities, means2d_abs, table_g, rr, n_slots,
+                perm, slot_bounds, absgrad, cap_total, tile_size, tile_width, tile_height,
+                n_images, width, height):
         T = n_images * tile_width * tile_height
         keys, fields = expand_emission(
             rr, table_g, n_slots, cap_total, tile_width, tile_width * tile_height, T
         )
-        fields_s, bounds = sort_slots(keys, fields, T)
-        return rasterize_fwd(
+        fields_s, bounds, order = sort_slots(keys, fields, T)
+        del keys, fields
+        if slot_bounds is None:  # no backward will run: the composite needs no permutation
+            del order
+        pix_out, t_final = rasterize_fwd(
             fields_s, bounds, n_images, tile_size, tile_width, tile_height, width, height
         )
+        if slot_bounds is not None:
+            ctx.save_for_backward(fields_s, bounds, order, perm, slot_bounds, pix_out, t_final)
+        ctx.geometry = (n_images, tile_size, tile_width, tile_height, width, height)
+        ctx.absgrad = absgrad
+        return pix_out, t_final
 
     @staticmethod
-    def backward(ctx, v_colors, v_t):
-        raise NotImplementedError(
-            "the rasterizer's backward (kernels K2 and K5) belongs to the "
-            "training slice, ROADMAP Queue 1 item 2"
+    def backward(ctx, v_pix, v_t):
+        fields_s, bounds, order, perm, slot_bounds, pix_out, t_final = ctx.saved_tensors
+        D = fields_s.shape[0] - 6
+        v_slot = rasterize_bwd(
+            fields_s, bounds, *ctx.geometry, v_pix.contiguous(), v_t.contiguous(),
+            pix_out, t_final,
         )
+        v_emit = unsort_slots(v_slot, order, ctx.absgrad)
+        vg = segment_rowsum(v_emit, slot_bounds)  # [rows, E], compaction order
+        v_gauss = unpermute_gaussians(vg, perm)
+        v_abs = v_gauss[:, 6 + D :] if ctx.absgrad else None
+        return (v_gauss[:, 0:2], v_gauss[:, 2:5], v_gauss[:, 6 : 6 + D], v_gauss[:, 5], v_abs,
+                *([None] * 13))
 
 
 def rasterize_to_pixels(
@@ -272,11 +353,12 @@ def rasterize_to_pixels(
     with aux = {n_isects, isect_overflow, tiles_per_gauss}.  `row_capacity`
     defaults to isect_capacity // 2.  Masked-off tiles show pure background
     with zero alpha.
+
+    Differentiable in means2d, conics, colors, opacities and backgrounds.
+    With `absgrad`, `means2d_abs` ([I, N, 2], value unused) receives as its
+    gradient the sum over a gaussian's slots of |d loss / d means2d| per tile
+    (AbsGS), as the JAX package's carrier of the same name does.
     """
-    if absgrad or means2d_abs is not None:
-        raise NotImplementedError(
-            "absgrad belongs to the training slice, ROADMAP Queue 1 item 2"
-        )
     if pack_payload or pack_grads:
         raise NotImplementedError(
             "packed sort payloads / gradients are ROADMAP Queue 1 item 5"
@@ -294,14 +376,20 @@ def rasterize_to_pixels(
     row_cap = _round_up(max(row_capacity, 1), CH)
 
     comp = compact_by_depth(means2d, conics, colors, opacities, radii, depths)
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (means2d, conics, colors, opacities)
+    )
     plan = make_tight_plan(
         comp.means2d, comp.radii, comp.conics, comp.opacities, comp.image_ids,
-        comp.n_live, I, tile_size, tw, th, cap_total, row_cap,
+        comp.n_live, I, tile_size, tw, th, cap_total, row_cap, with_slot_bounds=needs_grad,
     )
+    if absgrad and means2d_abs is None:
+        raise ValueError("absgrad=True needs the means2d_abs carrier")
     color_img, t_img = _RasterizeCore.apply(
         means2d.reshape(E, 2), conics.reshape(E, 3), colors.reshape(E, D),
-        opacities.reshape(E), field_table(comp, plan.dummy), plan.rr, plan.n_slots,
-        cap_total, tile_size, tw, th, I, image_width, image_height,
+        opacities.reshape(E), means2d_abs.reshape(E, 2) if absgrad else None,
+        field_table(comp, plan.dummy), plan.rr, plan.n_slots, comp.perm, plan.slot_bounds,
+        absgrad, cap_total, tile_size, tw, th, I, image_width, image_height,
     )
     t_img = t_img[..., None]
     render = color_img

@@ -6,6 +6,13 @@ _campos_from_viewmats :46-80, render_projected :83-127, rasterization
 tight plan, emission, sort and composite.  Shapes are static: the
 intersection worklist has a fixed capacity (`isect_capacity`) with an
 overflow flag in `meta`.  PyTorch runs eagerly, so nothing is jitted.
+
+Screen-space gradients for densification: pass `means2d_offset` (zeros,
+[..., C, N, 2], requires_grad) and read its `.grad` after `backward()`, as
+the JAX package differentiates with respect to the same carrier.  With
+`absgrad=True` that gradient is the tile-granular absolute gradient
+(AbsGS).  Calling `meta["means2d"].retain_grad()` before `backward()` gives
+the plain screen-space gradient without a carrier.
 """
 
 from __future__ import annotations
@@ -123,11 +130,8 @@ def rasterization(
             "fast=True (the bf16-pair packed inference path) is ROADMAP "
             "Queue 1 item 6; pass fast=False"
         )
-    if absgrad or means2d_offset is not None:
-        raise NotImplementedError(
-            "absgrad and means2d_offset belong to the training slice, ROADMAP "
-            "Queue 1 item 2"
-        )
+    if absgrad and means2d_offset is None:
+        raise ValueError("absgrad=True needs means2d_offset, the carrier of the gradient")
     if render_mode in _HIT_DIST_MODES:
         raise ValueError(
             f"hit-distance render mode {render_mode!r} requires with_eval3d=True"
@@ -237,10 +241,18 @@ def rasterization(
         isect_capacity = _round_up(isect_capacity, DEFAULT_CHUNK)
     masks_f = masks.reshape(I, th, tw) if masks is not None else None
 
+    m2_render, m2_abs = means2d_f, None
+    if means2d_offset is not None:
+        off = means2d_offset.reshape(I, N, 2)
+        if absgrad:
+            m2_abs = off  # its gradient becomes the AbsGS gradient
+        else:
+            m2_render = means2d_f + off  # its gradient is the screen-space gradient
+
     render_colors, render_alphas, aux = render_projected(
-        means2d_f, conics_f, feats_f, op, radii_f, depths_f, width, height,
+        m2_render, conics_f, feats_f, op, radii_f, depths_f, width, height,
         tile_size, isect_capacity, backgrounds=bg_f, masks=masks_f,
-        row_capacity=row_capacity, pack_payload=pack_payload, pack_grads=pack_grads,
+        absgrad=absgrad, means2d_abs=m2_abs, row_capacity=row_capacity, pack_payload=pack_payload, pack_grads=pack_grads,
     )
 
     if render_mode_has_expected_depth(render_mode):

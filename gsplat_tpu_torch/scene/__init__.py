@@ -1,5 +1,11 @@
 from .components import GaussianScene, Scene, Stage
-from .convert import load_checkpoint, splats_from_numpy
+from .convert import (
+    TrainState,
+    load_checkpoint,
+    splats_from_numpy,
+    train_state_from_numpy,
+    train_state_to_numpy,
+)
 from .inference import GaussianInferenceScene, render_scene
 
 __all__ = [
@@ -7,7 +13,10 @@ __all__ = [
     "GaussianScene",
     "Scene",
     "Stage",
+    "TrainState",
     "load_checkpoint",
     "render_scene",
     "splats_from_numpy",
+    "train_state_from_numpy",
+    "train_state_to_numpy",
 ]

@@ -6,17 +6,24 @@ scales (log), opacities (logit), sh0, shN} as numpy arrays;
 keys and `alive`, as examples/simple_trainer.py writes them).  Both return
 a raw-parameter GaussianScene; GaussianInferenceScene.from_gaussian_scene
 applies the activations.
+
+`train_state_from_numpy` / `train_state_to_numpy` carry a whole training
+state (parameters, `alive`, Adam moments and step count) across in the
+flat layout of that checkpoint (`p_*`, `mu_*`, `nu_*`, `opt_count`,
+`alive`; examples/simple_trainer.py:_save), so a checkpoint of either
+trainer loads in the other.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Mapping, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..optimizers.adam import AdamState, adam_init
 from .components import GaussianScene
 
 
@@ -30,12 +37,12 @@ def splats_from_numpy(
     """A GaussianScene of float32 tensors on `device` (the card by default)."""
     dev = resolve_device(device)
     tensors = {
-        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(dev)
+        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)).to(dev, copy=True)
         for k, v in splats.items()
     }
     alive_t = None
     if alive is not None:
-        alive_t = torch.from_numpy(np.asarray(alive, dtype=bool)).to(dev)
+        alive_t = torch.from_numpy(np.asarray(alive, dtype=bool)).to(dev, copy=True)
     return GaussianScene(scene_id, tensors, alive=alive_t)
 
 
@@ -48,3 +55,41 @@ def load_checkpoint(path: str, *, device: DeviceLike = None) -> GaussianScene:
     if not splats:
         raise ValueError(f"{path}: no p_* parameter arrays")
     return splats_from_numpy(splats, alive, device=dev, scene_id=os.path.basename(path))
+
+
+class TrainState(NamedTuple):
+    params: Dict[str, torch.Tensor]  # raw parameters, capacity-padded
+    alive: torch.Tensor  # [cap] bool
+    opt_state: AdamState
+
+
+def train_state_from_numpy(flat: Mapping[str, np.ndarray], *, device: DeviceLike = None) -> TrainState:
+    """A training state on `device` (the card by default) from the flat
+    checkpoint layout.  Missing moments start at zero; a missing `alive`
+    means every slot is live."""
+    dev = resolve_device(device)
+    # always a copy: the trainer updates its tensors in place
+    to = lambda v: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+    params = {k[2:]: to(v) for k, v in flat.items() if k.startswith("p_")}
+    if not params:
+        raise ValueError("no p_* parameter arrays")
+    zero = adam_init(params)
+    mu = {k: to(flat[f"mu_{k}"]) if f"mu_{k}" in flat else zero.mu[k] for k in params}
+    nu = {k: to(flat[f"nu_{k}"]) if f"nu_{k}" in flat else zero.nu[k] for k in params}
+    count = torch.tensor(int(flat["opt_count"]) if "opt_count" in flat else 0,
+                         dtype=torch.int32, device=dev)
+    cap = next(iter(params.values())).shape[0]
+    alive = (torch.from_numpy(np.array(flat["alive"], dtype=bool)).to(dev)
+             if "alive" in flat else torch.ones(cap, dtype=torch.bool, device=dev))
+    return TrainState(params, alive, AdamState(mu=mu, nu=nu, count=count))
+
+
+def train_state_to_numpy(params: Mapping[str, torch.Tensor], alive: torch.Tensor,
+                         opt_state: AdamState) -> Dict[str, np.ndarray]:
+    """The flat checkpoint layout of a training state, as numpy arrays."""
+    flat = {"alive": alive.cpu().numpy(), "opt_count": opt_state.count.cpu().numpy()}
+    for k, v in params.items():
+        flat[f"p_{k}"] = v.detach().cpu().numpy()
+        flat[f"mu_{k}"] = opt_state.mu[k].cpu().numpy()
+        flat[f"nu_{k}"] = opt_state.nu[k].cpu().numpy()
+    return flat

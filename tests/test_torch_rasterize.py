@@ -285,7 +285,7 @@ def test_plain_composite_batches_agree():
                         _t(c["cl"]), _t(c["im"]), torch.tensor(c["n_live"]))
     keys, fields = tg.expand_emission(tp.rr, tr.field_table(comp, tp.dummy), tp.n_slots,
                                       4096, tw, tw * th, 2 * tw * th)
-    fs, bounds = tr.sort_slots(keys, fields, 2 * tw * th)
+    fs, bounds, _ = tr.sort_slots(keys, fields, 2 * tw * th)
     full = tk.rasterize_fwd(fs, bounds, 2, ts, tw, th, W, H)
     budget = tk._PLAIN_BUDGET
     try:
