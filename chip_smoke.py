@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's two main paths, serving and training, on one
-NVIDIA card and hold each CUDA kernel against its plain PyTorch version.
+"""Drive the PyTorch port's main paths, serving, 3DGS training and 2DGS
+training, on one NVIDIA card and hold each CUDA kernel against its plain
+PyTorch version.
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -46,7 +47,29 @@ Phases:
      the live pairs equal to K1's contributing pairs exactly; K5: 1e-5 of
      each row's largest entry), each timed, K5 beside torch.segment_reduce;
   9. training profile: the stages of 3 training steps by CUDA events, and a
-     torch.profiler trace of 3 steps.
+     torch.profiler trace of 3 steps;
+ 10. 2DGS training: the same points and colours go through
+     gsplat_tpu_torch.trainer_2dgs.Trainer2DGS (default strategy at its
+     defaults, capacity 6x the points, refine from step 1 every 3 steps and
+     an opacity reset every 6, normal and distortion losses from step 0;
+     every 97th surfel starts below the prune threshold)
+     for 9 steps at 3840x2160, on targets rendered once beforehand (no
+     checkpoint is written); the intersection capacity comes from a
+     counting pass.  Launch counts are
+     set to 0 just before train() and read just after; K5, K6a, K6b, K8 and
+     K9 must all be > 0.  Each step's ms, peak memory and loss, the slots
+     and overflow, the gaussians each refine adds and prunes (growth must
+     happen, and the first refine must prune at least the planted surfels)
+     and the held-out PSNR are printed;
+ 11. 2DGS kernels, on one more training step's own inputs at 3840x2160: K8
+     and K9 equal to their plain versions bit for bit; K6a bit for bit on the
+     tiles with the longest spans and a seeded sample of the others (the
+     plain replay of every tile at 4k would take hours), with its
+     contributing pairs equal to K6b's live pairs in every tile; K6b within
+     1e-4 of each row's largest entry on the same tiles; with only the
+     median's cotangent set, the depth row of K6b's output equal to the
+     count of pixels whose median each slot is; the largest sorted position
+     against 2^24.  Each kernel timed, K9 beside torch.index_select.
 It prints one `kernels` JSON line and, last, the `ok` JSON line; any
 failure exits non-zero without it.  The script never falls back to the CPU.
 """
@@ -70,10 +93,14 @@ from torch.profiler import ProfilerActivity, profile
 
 from gsplat_tpu_torch import _build, rasterization
 from gsplat_tpu_torch import trainer as trainer_mod
+from gsplat_tpu_torch import trainer_2dgs as trainer2d_mod
 from gsplat_tpu_torch.ops import gather_kernel as gk
 from gsplat_tpu_torch.ops import rasterize as rz
+from gsplat_tpu_torch.ops import rasterize2d as r2d
+from gsplat_tpu_torch.ops import rasterize2d_kernel as r2k
 from gsplat_tpu_torch.ops import rasterize_kernel as rk
 from gsplat_tpu_torch.ops import segsum_kernel as sk
+from gsplat_tpu_torch.strategy import ops as strategy_ops
 from gsplat_tpu_torch.ops.projection import fully_fused_projection
 from gsplat_tpu_torch.ops.sh import spherical_harmonics
 from gsplat_tpu_torch.rendering import _campos_from_viewmats
@@ -109,11 +136,47 @@ KERNELS = {
     "rasterize_fwd": ("csrc/rasterize_fwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:330"),
     "rasterize_bwd": ("csrc/rasterize_bwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:475"),
     "segment_rowsum": ("csrc/segsum.cu", "gsplat_tpu/ops/segsum_pallas.py:38"),
+    "expand_emission_aabb": ("csrc/expand.cu", "gsplat_tpu/ops/gather_pallas.py:120"),
+    "align_rows": ("csrc/align.cu", "gsplat_tpu/ops/gather_pallas.py:274"),
+    "rasterize2d_fwd": ("csrc/rasterize2d_fwd.cu", "gsplat_tpu/ops/rasterize2d_pallas.py:92"),
+    "rasterize2d_bwd": ("csrc/rasterize2d_bwd.cu", "gsplat_tpu/ops/rasterize2d_pallas.py:213"),
 }
 WRAPPERS = {"expand_rows": gk.expand_rows, "expand_emission": gk.expand_emission,
             "rasterize_fwd": rk.rasterize_fwd, "rasterize_bwd": rk.rasterize_bwd,
-            "segment_rowsum": sk.segment_rowsum}
+            "segment_rowsum": sk.segment_rowsum,
+            "expand_emission_aabb": gk.expand_emission_aabb, "align_rows": gk.align_rows,
+            "rasterize2d_fwd": r2k.rasterize2d_fwd, "rasterize2d_bwd": r2k.rasterize2d_bwd}
 SERVING_KERNELS = ("expand_rows", "expand_emission", "rasterize_fwd")
+TRAINING_KERNELS = SERVING_KERNELS + ("rasterize_bwd", "segment_rowsum")
+SURFEL_KERNELS = ("expand_emission_aabb", "align_rows", "rasterize2d_fwd", "rasterize2d_bwd",
+                  "segment_rowsum")
+SURFEL_STEPS = 9
+# the default strategy's schedule, cut so that 9 steps refine (at steps 3
+# and 6) and reset opacities (at 6)
+SURFEL_SCHEDULE = dict(refine_start_iter=1, refine_every=3, reset_every=6)
+# Every PLANT_EVERY-th surfel starts at opacity PLANTED_OPACITY, below the
+# alpha gate (so it gets no gradient and stays there) and below the default
+# prune threshold 0.005: the first refine must prune at least those.  From
+# the trainer's opacity 0.1 no surfel falls below 0.005 in a few steps (the
+# reset only clamps to twice the threshold).
+PLANT_EVERY, PLANTED_OPACITY = 97, 0.001
+K6A_FLOP_PER_PAIR = 42  # the surfel response per evaluated (pixel, slot), csrc/surfel.cuh
+PLAIN_TILES = (16, 112)  # K6a, K6b plain: the longest spans, then a seeded sample
+
+
+def k6a_flop_per_live_pair(D: int) -> int:
+    """A live pair's weight, its D + 3 channel sums, distortion, A, B and
+    the median test."""
+    return 2 * (D + 3) + 10
+
+
+def k6b_flop_per_live_pair(D: int) -> int:
+    """What K6b's function needs for a live pair beyond the replay: the
+    channel chain (2(D+3) + 10), the distortion chain (20), alpha to sigma
+    and opacity (4), the 3D branch's cross-product transposes and the ray
+    transform rows (48, the larger branch), D + 3 channel gradients, and one
+    add into each of the 15 + D per-slot sums."""
+    return (2 * (D + 3) + 10) + 20 + 4 + 48 + (D + 3) + (15 + D)
 
 
 class Fail(Exception):
@@ -407,7 +470,7 @@ def training_data(raw, viewmats, K, wh):
 
 def make_trainer(dev, data, n_points: int, steps: int, result_dir: str, cap: int):
     cfg = trainer_mod.Config(
-        result_dir=result_dir, max_steps=steps, batch_size=1, sh_degree=3,
+        strategy="mcmc", result_dir=result_dir, max_steps=steps, batch_size=1, sh_degree=3,
         sh_degree_interval=TRAIN_SH_INTERVAL, cap_max=n_points, refine_every=3,
         eval_every=steps, save_every=steps, fixed_batch=True, seed=SEED,
         isect_capacity=cap, row_capacity=cap, opacity_reg=0.01, scale_reg=0.01,
@@ -459,6 +522,13 @@ def size_training_capacities(tr, log) -> int:
     return cap
 
 
+def log_memory(dev, when: str, log) -> None:
+    """What the process holds on the card at a phase's start: a step's peak
+    counts it too."""
+    if dev.type == "cuda":
+        log(f"device memory allocated {when}: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+
 class StepRecorder:
     """While installed on a Trainer, stands in for its `run_step` and
     `update`: one record per step with the step's ms (host clock around
@@ -500,7 +570,7 @@ class StepRecorder:
             step=out["step"], view=out["view"], sh_degree=out["sh_degree"],
             loss=float(out["loss"]), ms=ms, peak_gib=peak, n_alive=int(self.tr.alive.sum()),
             overflow=bool(out["overflow"]), grads_finite=self._finite,
-            refined=out["refined"], noised=out["noised"]))
+            refined=out["refined"], reset=out["reset"], noised=out["noised"]))
         return out
 
 
@@ -521,6 +591,7 @@ def training_phases(dev, raw, viewmats, K, wh, check_wh, n_cell, steps, k2_err_s
     log(f"targets: {tuple(targets.shape)} rendered in {time.perf_counter() - t0:.1f} s")
 
     # Phase 6: train() with the counts read around it.
+    log_memory(dev, "before train()", log)
     recorder = StepRecorder(tr)
     for w in WRAPPERS.values():
         w.launches = 0
@@ -534,8 +605,8 @@ def training_phases(dev, raw, viewmats, K, wh, check_wh, n_cell, steps, k2_err_s
     for r in hist:
         log("train " + json.dumps(r))
     log("training launches " + json.dumps(launches))
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the training path")
+    for name in TRAINING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the training path")
     require(len(hist) == steps >= 6, f"{len(hist)} steps ran, {steps} asked")
     for r in hist:
         require(math.isfinite(r["loss"]), f"step {r['step']}: loss {r['loss']}")
@@ -789,6 +860,346 @@ def profile_training_step(tr, vms, Ks, targets, timer, log) -> None:
     device_profile(one_step, step_ms, log, "step")
 
 
+def make_surfel_trainer(dev, data, steps: int, result_dir: str, cap: int):
+    """Trainer2DGS with the default strategy at its JAX defaults but for the
+    schedule (SURFEL_SCHEDULE), both regularizers from step 0."""
+    cfg = trainer2d_mod.Config2DGS(
+        result_dir=result_dir, max_steps=steps, batch_size=1, sh_degree=3,
+        sh_degree_interval=TRAIN_SH_INTERVAL, eval_every=steps, save_every=steps,
+        fixed_batch=True, seed=SEED, isect_capacity=cap, row_capacity=cap,
+        normal_start_iter=0, dist_start_iter=0,
+    )
+    tr = trainer2d_mod.Trainer2DGS(cfg, data=data, device=dev)
+    tr.strategy = dataclasses.replace(tr.strategy, **SURFEL_SCHEDULE)
+    return tr
+
+
+class TopologyRecorder:
+    """While installed, records the change each call of the strategy's
+    duplicate and split makes to the alive count, and the gaussians each
+    remove takes out."""
+
+    NAMES = ("duplicate", "split", "remove")
+
+    def __init__(self):
+        self.events = []
+        self.fns = {n: getattr(strategy_ops, n) for n in self.NAMES}
+        for n, fn in self.fns.items():
+            setattr(strategy_ops, n, self._wrap(n, fn))
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            if name == "remove":
+                alive, mask = args
+                self.events.append((name, int((alive & mask).sum())))
+                return fn(*args, **kw)
+            before = int(args[2].sum())
+            out = fn(*args, **kw)
+            self.events.append((name, int(out[2].sum()) - before))
+            return out
+        return wrapped
+
+    def restore(self):
+        for n, fn in self.fns.items():
+            setattr(strategy_ops, n, fn)
+
+
+def surfel_phases(dev, raw, viewmats, K, wh, timer, log, steps: int = SURFEL_STEPS):
+    """Phases 10 and 11.  Returns (the step history, launch counts of
+    train(), the K8, K9, K6a and K6b records)."""
+    W, H = wh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_2dgs_")
+    t0 = time.perf_counter()
+    tr = make_surfel_trainer(dev, training_data(raw, viewmats, K, wh), steps, tmp, 1 << 16)
+    n_planted = len(range(0, len(raw["means"]), PLANT_EVERY))
+    tr.params["opacities"][: len(raw["means"]) : PLANT_EVERY] = math.log(
+        PLANTED_OPACITY / (1.0 - PLANTED_OPACITY))
+    log(f"2dgs trainer: {int(tr.alive.sum())} surfels of capacity {tr.capacity}, "
+        f"{n_planted} of them at opacity {PLANTED_OPACITY}, {len(tr.train_views)} train views "
+        f"at {W}x{H}, set up in {time.perf_counter() - t0:.1f} s")
+    size_training_capacities(tr, log)
+    t0 = time.perf_counter()
+    targets = tr._make_npz_targets()
+    log(f"2dgs targets: {tuple(targets.shape)} rendered in {time.perf_counter() - t0:.1f} s")
+
+    # Phase 10: train() with the counts read around it.
+    recorder, topo = StepRecorder(tr), TopologyRecorder()
+    renders, evals = [], []
+    render_fn, eval_fn = trainer2d_mod.rasterization_2dgs, tr.eval
+
+    def counted_render(*args, **kw):
+        out = render_fn(*args, **kw)
+        if torch.is_grad_enabled():  # a training step's render, not an eval's
+            renders.append((out[6]["n_isects"], out[6]["isect_overflow"]))
+        return out
+
+    def recorded_eval(step, *args, **kw):
+        psnr = eval_fn(step, *args, **kw)
+        evals.append((kw.get("tag"), psnr))
+        return psnr
+
+    log_memory(dev, "before the 2DGS train()", log)
+    trainer2d_mod.rasterization_2dgs, tr.eval = counted_render, recorded_eval
+    # the checkpoint at the last step would write the 6x-capacity model and its
+    # moments (about 12 GB) to the disk; the CPU tests hold checkpoints
+    tr._save = lambda step: None
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    tr.train(targets=targets)
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"2dgs train(): {time.perf_counter() - t0:.1f} s with eval and checkpoint")
+    trainer2d_mod.rasterization_2dgs = render_fn
+    del tr.eval, tr._save
+    recorder.restore()
+    topo.restore()
+    shutil.rmtree(tmp)
+    hist = recorder.records
+    for r, (n_isects, overflow) in zip(hist, renders):
+        r.update(n_isects=int(n_isects), slot_overflow=bool(overflow))
+        log("train2dgs " + json.dumps(r))
+    log("2dgs training launches " + json.dumps(launches))
+    for name in SURFEL_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the 2DGS training path")
+    require(len(hist) == steps == len(renders), f"{len(hist)} 2DGS steps ran, {steps} asked")
+    require(any(r["reset"] for r in hist), "no opacity reset ran")
+    for r in hist:
+        require(math.isfinite(r["loss"]), f"2dgs step {r['step']}: loss {r['loss']}")
+        require(r["grads_finite"], f"2dgs step {r['step']}: a gradient is not finite")
+        require(not r["overflow"], f"2dgs step {r['step']}: isect_overflow")
+    # an opacity reset makes every surfel nearly transparent, so the loss is
+    # compared on one view before the first reset
+    reset_at = next(r["step"] for r in hist if r["reset"])
+    a, b = hist[0], next(r for r in hist[1:] if r["view"] == hist[0]["view"])
+    require(b["step"] < reset_at and b["loss"] < a["loss"],
+            f"2dgs loss on view {a['view']} did not fall before the first reset: {a['loss']} at "
+            f"step {a['step']}, {b['loss']} at step {b['step']}")
+    refines = [r for r in hist if r["refined"]]
+    require(len(topo.events) == 3 * len(refines) > 0, "the refines were not recorded")
+    grown = 0
+    for i, r in enumerate(refines):
+        (_, dup), (_, spl), (_, rem) = topo.events[3 * i : 3 * i + 3]
+        grown += dup + spl
+        log(json.dumps({"refine_step": r["step"], "alive_before": r["n_alive"] - dup - spl + rem,
+                        "duplicated": dup, "split": spl, "pruned": rem,
+                        "alive_after": r["n_alive"]}))
+    first_pruned = topo.events[2][1]
+    require(grown > 0 and first_pruned >= n_planted,
+            f"the refines grew {grown} gaussians and the first pruned {first_pruned} "
+            f"({n_planted} planted)")
+    require(hist[-1]["sh_degree"] == 3, "SH degree 3 was not reached")
+    psnr = dict(evals)
+    require(all(math.isfinite(v) for v in psnr.values()), f"2dgs eval PSNR {psnr}")
+    log(json.dumps({"2dgs_psnr": psnr}))
+
+    if tr.device.type == "cuda":
+        profile_surfel_step(tr, targets, timer, log)
+    tr.opt_state = None  # the kernel checks need the model only
+    records = surfel_kernels(tr, targets, launches, timer, log)
+    return hist, launches, records
+
+
+def surfel_kernels(tr, targets, launches, timer, log):
+    """Phase 11 on one more step's own arguments, captured by probes."""
+    on_card = tr.device.type == "cuda"
+    dev = tr.device
+    stages = {name: Probe(owner, name, on_card) for owner, name in (
+        (r2d, "make_emission_plan"), (rz, "expand_emission_aabb"), (r2d, "expand_sort_align"),
+        (rz, "align_rows"), (r2d, "rasterize2d_fwd"), (r2d, "rasterize2d_bwd"),
+        (r2d, "reduce_slot_grads"), (rz, "segment_rowsum"),
+    )}
+    vm = torch.from_numpy(tr.viewmats[:1]).to(dev)
+    Kt = torch.from_numpy(tr.Ks[:1]).to(dev)
+    out = tr.train_step(tr.params, tr.alive, vm, Kt, targets[:1], 3, step=tr.cfg.max_steps)
+    require(not bool(out[5]), "2dgs kernel step: isect_overflow")
+    del out
+    for p in stages.values():
+        p.restore()
+    for name, p in stages.items():
+        log(json.dumps({"train2dgs_stage": name, "ms": p.total_ms()}))
+    # the kernels' own arguments only: reduce_slot_grads' would hold the
+    # step's slot gradients (~10 GB at 4k) through the checks
+    args = {name: stages[name].first_args for name in (
+        "segment_rowsum", "align_rows", "expand_emission_aabb", "rasterize2d_fwd",
+        "rasterize2d_bwd")}
+    del stages
+    if on_card:
+        torch.cuda.empty_cache()
+    log_memory(dev, "before the 2DGS kernel checks", log)
+    return check_surfel_kernels(tr, args, launches, timer, log)
+
+
+@torch.no_grad()
+def check_surfel_kernels(tr, args, launches, timer, log):
+    """K5, K9, K8, K6a and K6b on the probed step's arguments, in that order,
+    each set of arguments released once checked: the step's slot tables are
+    ~10 GB each at 4k."""
+    on_card = tr.device.type == "cuda"
+    dev = tr.device
+
+    def release():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # K5 on the surfel step's slot gradients
+    k5 = args.pop("segment_rowsum")
+    worst, _ = rows_close(sk.segment_rowsum(*k5), sk.segment_rowsum_plain(*k5), 1e-5,
+                          "segment_rowsum (2DGS training step)", log)
+    log(f"segment_rowsum (2DGS training step): max error {worst:.3g} of the row's largest entry")
+    del k5
+    release()
+
+    records = []
+
+    # K9: the gather into sorted order, exact, row by row; torch.index_select beside it
+    rows, src = args.pop("align_rows")
+    got = gk.align_rows(rows, src)
+    require(all(torch.equal(got[f], gk.align_rows_plain(rows[f : f + 1], src)[0])
+                for f in range(rows.shape[0])), "align_rows != plain")
+    idx = src.long()
+    require(bool((idx >= 0).all()) and torch.equal(got, torch.index_select(rows, 1, idx)),
+            "align_rows != torch.index_select")
+    del got
+    release()
+    F9, A = rows.shape[0], src.shape[0]
+    records.append(kernel_record(
+        "align_rows", launches["align_rows"], 0.0, timer(lambda: gk.align_rows(rows, src), 10),
+        timer(lambda: gk.align_rows_plain(rows, src), 1),
+        4 * (rows.numel() + A + F9 * A), 0,
+        timer(lambda: torch.index_select(rows, 1, idx), 10)))
+    log(f"align_rows: {F9} rows x {A} slots, equal to its plain version and to "
+        f"torch.index_select bit for bit")
+    del rows, src, idx
+    release()
+
+    # K8: the emission, exact
+    k8 = args.pop("expand_emission_aabb")
+    got = gk.expand_emission_aabb(*k8)
+    want = gk.expand_emission_aabb_plain(*k8)
+    require(all(torch.equal(x, y) for x, y in zip(got, want)), "expand_emission_aabb != plain")
+    n_live_slots = int((got[0] < k8[8]).sum())
+    del got, want
+    release()
+    E, R, cap = k8[0].shape[0], k8[3].shape[0], k8[5]
+    records.append(kernel_record(
+        "expand_emission_aabb", launches["expand_emission_aabb"], 0.0,
+        timer(lambda: gk.expand_emission_aabb(*k8), 10),
+        timer(lambda: gk.expand_emission_aabb_plain(*k8), 1),
+        4 * (E * (6 + R) + 1 + cap * (3 + R)), 0))
+    log(f"expand_emission_aabb: {E} surfels, {n_live_slots} live slots of {cap}, equal to its "
+        f"plain version bit for bit")
+    # K6a: bit for bit on the longest spans and a seeded sample of tiles
+    k6a, k6b = args.pop("rasterize2d_fwd"), args.pop("rasterize2d_bwd")
+    fields, bounds = k6a[0], k6a[1]
+    n_images, tw, th, W, H = k6a[2:7]
+    T = bounds.shape[0] - 1
+    F = fields.shape[0]
+    D = F - 15
+    n_sorted = int(bounds[-1])
+    # the per-tile pair counts come from the kernel (a CPU rehearsal has none)
+    kept = torch.zeros(T, dtype=torch.int32, device=dev)
+    n_eval = torch.zeros(T, dtype=torch.int32, device=dev)
+    counted = dict(pair_counts=kept, eval_counts=n_eval) if on_card else {}
+    out, t_fin, med = r2k.rasterize2d_fwd(*k6a, **counted)
+    require(torch.equal(out, k6b[9]) and torch.equal(t_fin, k6b[10])
+            and torch.equal(med, k6b[11]), "rasterize2d_fwd: a rerun differs from the step's")
+    counts = (bounds[1:] - bounds[:-1]).long()
+    n_long, n_rand = PLAIN_TILES
+    longest = torch.argsort(counts, descending=True)[:n_long]
+    rest = torch.ones(T, dtype=torch.bool, device=dev)
+    rest[longest] = False
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    others = torch.nonzero(rest)[:, 0].cpu()
+    sample = others[torch.randperm(others.numel(), generator=g)[:n_rand]].to(dev)
+    tiles = torch.cat([longest, sample])
+    tiles = tiles[torch.argsort(counts[tiles])]  # batches of like spans
+    tile_of_pixel = (torch.arange(n_images, device=dev)[:, None, None] * (tw * th)
+                     + (torch.arange(H, device=dev)[None, :, None] // 16) * tw
+                     + torch.arange(W, device=dev)[None, None, :] // 16)
+    on_tiles = torch.isin(tile_of_pixel, tiles)
+    t1 = time.perf_counter()
+    out_p, t_p, med_p = r2k.rasterize2d_fwd_plain(*k6a, tiles=tiles, budget=1 << 26)
+    plain_fwd_ms = (time.perf_counter() - t1) * 1e3
+    require(torch.equal(out[on_tiles], out_p[on_tiles]) and torch.equal(t_fin[on_tiles], t_p[on_tiles])
+            and torch.equal(med[on_tiles], med_p[on_tiles]),
+            "rasterize2d_fwd != plain on the sampled tiles")
+    del out_p, t_p, med_p, out, t_fin
+    n_pairs, n_live = int(n_eval.sum()), int(kept.sum())
+    log(f"rasterize2d_fwd at {W}x{H}: equal to its plain version bit for bit on {tiles.numel()} "
+        f"tiles ({int(counts[tiles].sum())} of {n_sorted} slots, the longest span "
+        f"{int(counts.max())}); {n_pairs} pairs evaluated, {n_live} contributing")
+    records.append(kernel_record(
+        "rasterize2d_fwd", launches["rasterize2d_fwd"], 0.0,
+        timer(lambda: r2k.rasterize2d_fwd(*k6a), 10), plain_fwd_ms,
+        4 * (F * n_sorted + T + 1 + n_images * H * W * (D + 7)),
+        K6A_FLOP_PER_PAIR * n_pairs + k6a_flop_per_live_pair(D) * n_live))
+    records[-1]["plain_on"] = f"{tiles.numel()} of {T} tiles"
+
+    # K6b: the live pairs, the rows on the sampled tiles, the median's slot
+    live = torch.zeros(T, dtype=torch.int32, device=dev)
+    got = r2k.rasterize2d_bwd(*k6b, **(dict(live_counts=live) if on_card else {}))
+    require(torch.equal(live, kept), f"rasterize2d_bwd: live pairs differ from the forward's in "
+            f"{int((live != kept).sum())} tiles")
+    again = r2k.rasterize2d_bwd(*k6b)
+    require(torch.equal(got, again), "rasterize2d_bwd: two runs differ")
+    del again
+    sel = torch.cat([torch.arange(int(bounds[t]), int(bounds[t + 1]), device=dev)
+                     for t in tiles.tolist()])
+    got = got[:, sel]
+    release()
+    t1 = time.perf_counter()
+    want, n_live_p = r2k.rasterize2d_bwd_plain(*k6b, tiles=tiles, budget=1 << 24)
+    plain_bwd_ms = (time.perf_counter() - t1) * 1e3
+    require(n_live_p == int(live[tiles].sum()) or not on_card,
+            "rasterize2d_bwd: live pairs != plain")
+    worst, err6b = rows_close(got, want[:, sel], 1e-4,
+                              "rasterize2d_bwd (2DGS training step, sampled tiles)", log)
+    del got, want
+    release()
+    v_med = torch.zeros_like(k6b[7])
+    v_med[..., D + 4] = 1.0
+    g_med = r2k.rasterize2d_bwd(*k6b[:7], v_med, torch.zeros_like(k6b[8]), *k6b[9:])
+    med = k6b[11]
+    on = med >= 0
+    per_slot = torch.bincount(med[on].long(), minlength=g_med.shape[1]).to(torch.float32)
+    depth_row = 11 + D
+    require(torch.equal(g_med[depth_row], per_slot) and bool((g_med[:depth_row] == 0).all())
+            and bool((g_med[depth_row + 1:] == 0).all()),
+            "the median's gradient does not land on one slot per pixel")
+    top = max(int(med.max()), n_sorted - 1)
+    log(f"rasterize2d_bwd: max error {worst:.3g} of the row's largest entry on the sampled "
+        f"tiles, {int(live.sum())} live pairs (= the forward's in every tile); v_median lands "
+        f"on one slot for each of {int(on.sum())} pixels; largest sorted position {top} "
+        f"({'above' if top >= 1 << 24 else 'below'} 2^24 = {1 << 24})")
+    del g_med, v_med, per_slot
+    release()
+    records.append(kernel_record(
+        "rasterize2d_bwd", launches["rasterize2d_bwd"], err6b,
+        timer(lambda: r2k.rasterize2d_bwd(*k6b), 5), plain_bwd_ms,
+        4 * (2 * F * n_sorted + T + 1 + n_images * H * W * (2 * (D + 5) + 3)),
+        K6A_FLOP_PER_PAIR * n_pairs + k6b_flop_per_live_pair(D) * n_live))
+    records[-1]["plain_on"] = f"{tiles.numel()} of {T} tiles"
+    del k6a, k6b, fields, bounds, med
+    release()
+
+    return records
+
+
+def profile_surfel_step(tr, targets, timer, log) -> None:
+    """One 2DGS training step without a refine, timed whole and traced."""
+    vm = torch.from_numpy(tr.viewmats[:1]).to(tr.device)
+    Kt = torch.from_numpy(tr.Ks[:1]).to(tr.device)
+
+    def one_step():
+        out = tr.train_step(tr.params, tr.alive, vm, Kt, targets[:1], 3, step=tr.cfg.max_steps)
+        tr.params, tr.opt_state = tr.update(tr.params, tr.opt_state, out[1], out[4], 0.01)
+
+    step_ms = timer(one_step, 3)
+    log(json.dumps({"train2dgs_stage": "whole step without refine", "ms": step_ms,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    device_profile(one_step, step_ms, log, "2dgs_step")
+
+
 class Serving:
     """The synthetic scene registered on a Stage, and its request cameras."""
 
@@ -970,7 +1381,17 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         timer, log)
     for rec in records:
         rec["launches_training"] = train_launches[rec["name"]]
-    return serve, history, records + train_records
+
+    # 2DGS training: the same points and colours through the surfel trainer.
+    surfel_history, surfel_launches, surfel_records = surfel_phases(
+        dev, raw, viewmats, K, (W, H), timer, log)
+    records = records + train_records
+    for rec in records:
+        rec["launches_2dgs"] = surfel_launches[rec["name"]]
+    for rec in surfel_records:
+        rec["launches_training"] = train_launches[rec["name"]]
+        rec["launches_2dgs"] = rec["launches"]
+    return serve, history + surfel_history, records + surfel_records
 
 
 def device_profile(unit_fn, unit_ms: float, log, unit: str, n: int = 3) -> None:

@@ -1,5 +1,7 @@
-"""Train 3D gaussians with the PyTorch / CUDA port (MCMC strategy).
+"""Train 3D gaussians with the PyTorch / CUDA port (default or MCMC strategy).
 
+    python examples/simple_trainer_torch.py default --data npz --data_dir scene.npz \
+        --max_steps 7000 [--capacity 6000000] [--device cpu]
     python examples/simple_trainer_torch.py mcmc --data npz --data_dir scene.npz \
         --max_steps 7000 --cap_max 1000000 [--device cpu]
 

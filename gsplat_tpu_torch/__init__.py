@@ -1,14 +1,14 @@
 """gsplat_tpu_torch: the PyTorch / CUDA port of gsplat_tpu for NVIDIA Hopper.
 
-This slice serves a trained 3DGS scene: projection, SH, the tight tile plan
-and the forward composite, with three hand-written CUDA kernels
-(csrc/expand.cu: row and emission expansion; csrc/rasterize_fwd.cu: the
-composite).  Kernels launch for CUDA tensors; their plain PyTorch versions
-run for CPU tensors.  The JAX package `gsplat_tpu` stays the reference; this
-package never imports it.
+It serves trained 3DGS scenes (rasterization, render_scene) and trains 3DGS
+(trainer.Trainer, default or MCMC strategy) and 2DGS surfel models
+(trainer_2dgs.Trainer2DGS, rasterization_2dgs), with hand-written CUDA
+kernels under csrc/.  Kernels launch for CUDA tensors; their plain PyTorch
+versions run for CPU tensors.  The JAX package `gsplat_tpu` stays the
+reference; this package never imports it.
 """
 
-from .rendering import rasterization, render_projected
+from .rendering import rasterization, rasterization_2dgs, render_projected
 from .scene import (
     GaussianInferenceScene,
     GaussianScene,
@@ -24,6 +24,7 @@ __all__ = [
     "Stage",
     "load_checkpoint",
     "rasterization",
+    "rasterization_2dgs",
     "render_projected",
     "render_scene",
     "splats_from_numpy",

@@ -48,6 +48,11 @@ SOURCE_FLAGS: Dict[str, List[str]] = {
     "rasterize_fwd": [],
     "rasterize_bwd": [],
     "segsum": [],
+    "align": [],
+    # rasterize2d_fwd and rasterize2d_bwd share csrc/surfel.cuh, as the 3DGS
+    # pair shares composite.cuh: compiled alike
+    "rasterize2d_fwd": [],
+    "rasterize2d_bwd": [],
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -128,6 +133,8 @@ _SIGNATURES = {
         "gs_expand_rows": [_VOID, _VOID, _LL, _VOID, _LL, _FLOAT, _INT, _VOID, _VOID],
         "gs_expand_emission": [_VOID, _LL, _VOID, _LL, _INT, _VOID, _LL, _INT,
                                _INT, _INT, _VOID, _VOID, _VOID],
+        "gs_expand_aabb": [_VOID, _VOID, _LL, _VOID, _VOID, _INT, _VOID, _LL, _INT, _INT,
+                           _INT, _VOID, _VOID, _VOID, _VOID, _VOID],
     },
     "rasterize_fwd": {
         "gs_rasterize_fwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT,
@@ -140,6 +147,17 @@ _SIGNATURES = {
     },
     "segsum": {
         "gs_segment_rowsum": [_VOID, _LL, _INT, _VOID, _LL, _VOID, _VOID],
+    },
+    "align": {
+        "gs_align_rows": [_VOID, _LL, _VOID, _LL, _INT, _VOID, _VOID],
+    },
+    "rasterize2d_fwd": {
+        "gs_rasterize2d_fwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
+                               _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
+    },
+    "rasterize2d_bwd": {
+        "gs_rasterize2d_bwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
+                               _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
     },
 }
 

@@ -1,4 +1,5 @@
-// Tight-plan row expansion (K3) and emission expansion (K4) for Hopper.
+// Tight-plan row expansion (K3), emission expansion (K4) and AABB emission
+// expansion (K8) for Hopper.
 //
 // K3 `expand_rows` replaces gsplat_tpu/ops/gather_pallas.py:_expand_rows_kernel
 // (:396, wrapper expand_rows :526).  One thread per row record r: it finds
@@ -11,6 +12,17 @@
 // slot s: it finds its row record by binary search in rr_cum_in, computes
 // the tile key (:652-665) and copies gaussian gid's 6+D render fields.
 // Dummy records and slots past n_slots carry the sentinel key and zeros.
+//
+// K8 `expand_emission_aabb` replaces gather_pallas.py:_expand_kernel (:120,
+// wrapper expand_emission :216), the AABB emission of the 2DGS path.  One
+// thread per emission slot s: a binary search of cum_in finds gaussian g,
+// integer div/mod of s's position within g's run by the rect width gives
+// the tile, and the slot takes g's key, depth, flat id and R field rows.  A
+// slot at or past n_slots, or a dummy slot (a culled gaussian's one slot,
+// image == n_images), gets the sentinel key, an infinite depth, id 0 and zero
+// fields, by select: a NaN in a culled row never reaches a live slot.  (The
+// TPU kernel's f32 _int_divmod, hi/lo transport and one-hot selection are
+// TPU workarounds.)  Bound by device-memory bytes: its [R, cap] output.
 //
 // What bounds them on the H100: both move little data per thread and do
 // little arithmetic (a ~20-step binary search, ~40 flops for K3, one
@@ -144,6 +156,36 @@ __global__ void expand_emission_kernel(const int* __restrict__ rr, long long R,
     fields[f * cap + s] = gid >= 0 ? table_g[f * E + gid] : 0.0f;
 }
 
+__global__ void expand_aabb_kernel(const int* __restrict__ cum_in,
+                                   const int* __restrict__ rect, long long E,
+                                   const float* __restrict__ depth,
+                                   const float* __restrict__ table, int R,
+                                   const int* __restrict__ n_slots_p, long long cap,
+                                   int tile_w, int tiles_per_im, int sentinel,
+                                   int* __restrict__ keys, float* __restrict__ depth_out,
+                                   int* __restrict__ flat, float* __restrict__ fields) {
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= cap) return;
+  long long g = E;
+  int key = sentinel;
+  if (s < (long long)*n_slots_p) {
+    g = upper_bound(cum_in, E, s);
+    if (g < E) {
+      const long long ex = g > 0 ? cum_in[g - 1] : 0;
+      const int within = (int)(s - ex);
+      const int w_rect = max(rect[2 * E + g], 1);
+      const int ty = rect[1 * E + g] + within / w_rect;
+      const int tx = rect[0 * E + g] + within % w_rect;
+      key = min(rect[3 * E + g] * tiles_per_im + ty * tile_w + tx, sentinel);
+    }
+  }
+  const bool live = key < sentinel;
+  keys[s] = key;
+  depth_out[s] = live ? depth[g] : __int_as_float(0x7f800000);
+  flat[s] = live ? (int)g : 0;
+  for (int f = 0; f < R; ++f) fields[f * cap + s] = live ? table[f * E + g] : 0.0f;
+}
+
 constexpr int kThreads = 256;
 
 unsigned int blocks_for(long long n) {
@@ -179,6 +221,21 @@ int gs_expand_emission(const int* rr, long long R, const float* table_g,
     expand_emission_kernel<<<blocks_for(cap), kThreads, 0, stream>>>(
         rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel,
         keys, fields);
+  return (int)cudaGetLastError();
+}
+
+// cum_in [E] i32 inclusive cumsum of max(cnt, 1), rect [4, E] i32 (tminx,
+// tminy, w_rect, im), depth [E] f32, table [R, E] f32, n_slots [1] i32
+// (device) -> keys [cap] i32, depth_out [cap] f32, flat [cap] i32,
+// fields [R, cap] f32.
+int gs_expand_aabb(const int* cum_in, const int* rect, long long E,
+                   const float* depth, const float* table, int R, const int* n_slots,
+                   long long cap, int tile_w, int tiles_per_im, int sentinel, int* keys,
+                   float* depth_out, int* flat, float* fields, cudaStream_t stream) {
+  if (cap > 0)
+    expand_aabb_kernel<<<blocks_for(cap), kThreads, 0, stream>>>(
+        cum_in, rect, E, depth, table, R, n_slots, cap, tile_w, tiles_per_im, sentinel,
+        keys, depth_out, flat, fields);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
-"""Training losses of the classic 3DGS path.
+"""Training losses of the 3DGS and 2DGS trainers.
 
 Port of `gsplat_tpu/losses.py:26-98` (l1, mse, windowed SSIM after Wang et
-al. 2004 with an 11-tap sigma-1.5 Gaussian window and zero padding).
+al. 2004 with an 11-tap sigma-1.5 Gaussian window and zero padding) and
+:222-225 (the normal-consistency loss of the surfel trainer).
 Images are [..., H, W, C], channels last, the rasterizer's output layout.
 
 The blur is two depthwise convolutions.  On the card a float32 convolution
@@ -74,3 +75,8 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
 def ssim_loss(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """1 - SSIM."""
     return 1.0 - ssim(img1, img2, window_size)
+
+
+def normal_cosine_loss(pred_normal: torch.Tensor, gt_normal: torch.Tensor) -> torch.Tensor:
+    """Mean of 1 - cos between unit normals [..., 3]."""
+    return torch.mean(1.0 - (pred_normal * gt_normal).sum(dim=-1))

@@ -7,7 +7,9 @@ from .projection import (
     TRANSMITTANCE_THRESHOLD,
     fully_fused_projection,
 )
+from .projection2d import fully_fused_projection_2dgs
 from .rasterize import rasterize_to_pixels
+from .rasterize2d import rasterize_to_pixels_2dgs
 from .sh import eval_sh_bases, num_sh_bases, spherical_harmonics
 
 __all__ = [
@@ -18,10 +20,12 @@ __all__ = [
     "TRANSMITTANCE_THRESHOLD",
     "eval_sh_bases",
     "fully_fused_projection",
+    "fully_fused_projection_2dgs",
     "normalize",
     "num_sh_bases",
     "quat_scale_to_covar_preci",
     "quat_to_rotmat",
     "rasterize_to_pixels",
+    "rasterize_to_pixels_2dgs",
     "spherical_harmonics",
 ]

@@ -1,16 +1,20 @@
-"""Tight-plan row expansion (K3) and emission expansion (K4).
+"""Tight-plan row expansion (K3), emission expansion (K4), AABB emission
+expansion (K8) and the row gather into sorted order (K9).
 
-Wrappers for `csrc/expand.cu`, each with its plain PyTorch version.  On a
-CUDA tensor a wrapper launches its kernel (or raises); the plain version
-runs only for CPU tensors.  Each wrapper counts its launches in
-`<wrapper>.launches`.
+Wrappers for `csrc/expand.cu` (K3, K4, K8) and `csrc/align.cu` (K9), each
+with its plain PyTorch version.  On a CUDA tensor a wrapper launches its
+kernel (or raises); the plain version runs only for CPU tensors.  Each
+wrapper counts its launches in `<wrapper>.launches`.
 
 K3 `expand_rows` replaces gsplat_tpu/ops/gather_pallas.py:_expand_rows_kernel
 (:396, wrapper :526); K4 `expand_emission` replaces
 gather_pallas.py:_expand2_kernel (:584, wrapper expand_emission2 :721),
-unpacked layout.  The TPU kernels' windowed one-hot selection and hi/lo
-integer transport are TPU workarounds and are not ported: the CUDA kernels
-find their source row by binary search and read it directly.
+unpacked layout; K8 `expand_emission_aabb` replaces _expand_kernel (:120,
+wrapper expand_emission :216; K4 took that name here first); K9
+`align_rows` replaces _align_kernel (:274, wrapper :316).  The TPU kernels'
+windowed one-hot selection and hi/lo integer transport are TPU workarounds
+and are not ported: the CUDA kernels find their source row by binary search
+and read it directly.
 """
 
 from __future__ import annotations
@@ -212,3 +216,129 @@ def expand_emission(
 
 
 expand_emission.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: AABB emission (the 2DGS path)
+# ---------------------------------------------------------------------------
+
+# K8 rect rows rect [4, E]
+RC_TMINX, RC_TMINY, RC_W, RC_IM = range(4)
+
+
+def expand_emission_aabb_plain(
+    cum_in: torch.Tensor, rect: torch.Tensor, depth: torch.Tensor, table: torch.Tensor,
+    n_slots: torch.Tensor, cap: int, tile_w: int, tiles_per_im: int, sentinel: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K8: (keys int32 [cap], depth f32 [cap], flat ids
+    int32 [cap], fields f32 [R, cap])."""
+    E = cum_in.shape[0]
+    dev = cum_in.device
+    s = torch.arange(cap, dtype=torch.int32, device=dev)
+    g = torch.searchsorted(cum_in, s, right=True)
+    found = (s < n_slots) & (g < E)
+    gc = torch.clamp(g, max=E - 1)
+    ex = torch.where(gc > 0, cum_in[torch.clamp(gc - 1, min=0)], 0)
+    within = s - ex
+    r = rect[:, gc]
+    w_rect = torch.clamp(r[RC_W], min=1)
+    ty = r[RC_TMINY] + torch.div(within, w_rect, rounding_mode="floor")
+    tx = r[RC_TMINX] + torch.remainder(within, w_rect)
+    key = torch.clamp(r[RC_IM] * tiles_per_im + ty * tile_w + tx, max=sentinel)
+    key = torch.where(found, key, sentinel).to(torch.int32)
+    live = key < sentinel
+    del s, g, found, ex, within, r, w_rect, ty, tx  # a 4k step emits ~130 M slots
+    depth_s = torch.where(live, depth[gc], float("inf"))
+    flat = torch.where(live, gc, 0).to(torch.int32)
+    fields = table[:, gc].masked_fill_(~live[None], 0.0)  # by select: a NaN stays out
+    return key, depth_s, flat, fields
+
+
+def expand_emission_aabb(
+    cum_in: torch.Tensor,  # [E] i32 inclusive cumsum of max(cnt, 1)
+    rect: torch.Tensor,  # [4, E] i32 (tminx, tminy, w_rect, im); im == n_images: culled
+    depth: torch.Tensor,  # [E] f32 sort depth
+    table: torch.Tensor,  # [R, E] f32 render fields
+    n_slots: torch.Tensor,  # [1] i32 emission slots (dummies included)
+    cap: int,
+    tile_w: int,
+    tiles_per_im: int,
+    sentinel: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Expand per-gaussian rows to AABB emission slots, gaussian-major.
+
+    Gaussian g owns slots [cum_in[g-1], cum_in[g]) and covers its tile
+    rectangle row by row.  A live slot gets its tile key
+    im*tiles_per_im + ty*tile_w + tx, g's depth, g's flat id and g's fields;
+    a slot at or past n_slots or a culled gaussian's dummy slot gets the
+    sentinel key, depth inf, id 0 and zero fields.  Returns (keys int32
+    [cap], depth f32 [cap], flat int32 [cap], fields f32 [R, cap]).
+    """
+    if cum_in.dim() != 1 or cum_in.dtype != torch.int32 or not cum_in.is_contiguous():
+        raise ValueError("cum_in must be a contiguous int32 [E] tensor")
+    E = cum_in.shape[0]
+    _check_table("rect", rect, 4, torch.int32)
+    if rect.shape[1] != E or depth.shape != (E,) or depth.dtype != torch.float32:
+        raise ValueError(f"rect and depth must cover the {E} gaussians of cum_in")
+    if (table.dim() != 2 or table.shape[1] != E or table.dtype != torch.float32
+            or not table.is_contiguous()):
+        raise ValueError(f"table must be a contiguous float32 [R, {E}] tensor")
+    _check_count("n_slots", n_slots)
+    if not check_kernel_device("expand_emission_aabb", cum_in, rect, depth, table, n_slots):
+        return expand_emission_aabb_plain(cum_in, rect, depth, table, n_slots, cap, tile_w,
+                                          tiles_per_im, sentinel)
+    lib = _build.load("expand")
+    R = table.shape[0]
+    dev = cum_in.device
+    keys = torch.empty((cap,), dtype=torch.int32, device=dev)
+    depth_s = torch.empty((cap,), dtype=torch.float32, device=dev)
+    flat = torch.empty((cap,), dtype=torch.int32, device=dev)
+    fields = torch.empty((R, cap), dtype=torch.float32, device=dev)
+    code = lib.gs_expand_aabb(
+        cum_in.data_ptr(), rect.data_ptr(), E, depth.contiguous().data_ptr(), table.data_ptr(),
+        R, n_slots.data_ptr(), cap, tile_w, tiles_per_im, sentinel, keys.data_ptr(),
+        depth_s.data_ptr(), flat.data_ptr(), fields.data_ptr(), _build.stream_of(keys),
+    )
+    _build.check(lib, code, "expand_emission_aabb")
+    expand_emission_aabb.launches += 1
+    return keys, depth_s, flat, fields
+
+
+expand_emission_aabb.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: row gather into sorted order
+# ---------------------------------------------------------------------------
+
+
+def align_rows_plain(rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: rows[:, src], 0 where src < 0."""
+    picked = rows[:, torch.clamp(src, min=0).long()]
+    return torch.where(src[None] >= 0, picked, 0.0)
+
+
+def align_rows(
+    rows: torch.Tensor,  # [F, P] f32
+    src: torch.Tensor,  # [A] i32 source column of each output column, -1 for padding
+) -> torch.Tensor:
+    """out[f, a] = rows[f, src[a]], and 0 where src[a] < 0: [F, A] f32, the
+    same bits as the source."""
+    if rows.dim() != 2 or rows.dtype != torch.float32 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous float32 [F, P] tensor")
+    if src.dim() != 1 or src.dtype != torch.int32 or not src.is_contiguous():
+        raise ValueError(f"src must be a contiguous int32 [A] tensor, got {src.dtype} {tuple(src.shape)}")
+    if not check_kernel_device("align_rows", rows, src):
+        return align_rows_plain(rows, src)
+    lib = _build.load("align")
+    F, P = rows.shape
+    A = src.shape[0]
+    out = torch.empty((F, A), dtype=torch.float32, device=rows.device)
+    code = lib.gs_align_rows(rows.data_ptr(), P, src.data_ptr(), A, F, out.data_ptr(),
+                             _build.stream_of(out))
+    _build.check(lib, code, "align_rows")
+    align_rows.launches += 1
+    return out
+
+
+align_rows.launches = 0

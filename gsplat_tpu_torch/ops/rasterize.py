@@ -46,7 +46,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from .gather_kernel import expand_emission, expand_rows
+from .gather_kernel import align_rows, expand_emission, expand_emission_aabb, expand_rows
 from .projection import ALPHA_THRESHOLD
 from .rasterize_kernel import rasterize_bwd, rasterize_fwd
 from .segsum_kernel import segment_rowsum
@@ -425,3 +425,115 @@ def rasterize_to_pixels(
         "tiles_per_gauss": aabb_cnt.reshape(I, N).to(torch.int32),
     }
     return render, render_alphas, aux
+
+
+# ---------------------------------------------------------------------------
+# AABB emission machinery of the 2DGS path (rasterize.py:1037-1215)
+# ---------------------------------------------------------------------------
+
+
+class EmissionPlan(NamedTuple):
+    """Static-shape AABB tile emission layout (rasterize.py:1037-1055)."""
+
+    cnt: torch.Tensor  # [E] i32 covered tiles (0 for culled)
+    cum_ex: torch.Tensor  # [E] i32 exclusive cumsum of max(cnt, 1)
+    cum_in: torch.Tensor  # [E] i32 inclusive cumsum of max(cnt, 1)
+    tminx: torch.Tensor  # [E] i32
+    tminy: torch.Tensor  # [E] i32
+    w_rect: torch.Tensor  # [E] i32 (>= 1)
+    im: torch.Tensor  # [E] i32 image (n_images for culled: sentinel keys)
+    n_slots: torch.Tensor  # [1] i32 emission slots, dummies included (<= cap_total)
+    n_isects: torch.Tensor  # [] i32 real intersections before truncation
+    overflow: torch.Tensor  # [] bool
+
+
+def make_emission_plan(
+    means2d: torch.Tensor,  # [I, N, 2]
+    radii: torch.Tensor,  # [I, N, 2] int32
+    tile_size: int,
+    tile_width: int,
+    tile_height: int,
+    cap_total: int,
+) -> EmissionPlan:
+    """The AABB counting pass (rasterize.py:1058-1108).  A culled gaussian
+    emits one dummy slot, which counts against cap_total but not in
+    n_isects; `overflow` says the slots did not fit."""
+    I, N = means2d.shape[0], means2d.shape[1]
+    E = I * N
+    m2 = means2d.detach().reshape(E, 2)
+    rad = radii.reshape(E, 2)
+    tmean = m2 / tile_size
+    trad = rad.to(m2.dtype) / tile_size
+    tmin = torch.floor(tmean - trad).to(torch.int32)
+    tmax = torch.ceil(tmean + trad).to(torch.int32)
+    tminx = torch.clamp(tmin[:, 0], 0, tile_width)
+    tminy = torch.clamp(tmin[:, 1], 0, tile_height)
+    w = torch.clamp(tmax[:, 0], 0, tile_width) - tminx
+    h = torch.clamp(tmax[:, 1], 0, tile_height) - tminy
+    alive = (rad > 0).all(dim=-1) & (w > 0) & (h > 0)
+    cnt = torch.where(alive, w * h, 0).to(torch.int32)
+    cnt_p = torch.clamp(cnt, min=1)
+    cum_in = _cumsum_i32(cnt_p)
+    total = cum_in[-1]
+    e_ids = torch.arange(E, dtype=torch.int32, device=m2.device)
+    return EmissionPlan(
+        cnt=cnt, cum_ex=cum_in - cnt_p, cum_in=cum_in,
+        tminx=torch.where(alive, tminx, 0).to(torch.int32),
+        tminy=torch.where(alive, tminy, 0).to(torch.int32),
+        w_rect=torch.where(alive, torch.clamp(w, min=1), 1).to(torch.int32),
+        im=torch.where(alive, e_ids // N, I).to(torch.int32),
+        n_slots=torch.clamp(total, max=cap_total).reshape(1).to(torch.int32),
+        n_isects=cnt.sum(dtype=torch.int32),
+        overflow=total > cap_total,
+    )
+
+
+def expand_sort_align(
+    table: torch.Tensor,  # [R, E] f32 render fields (sanitized)
+    depth: torch.Tensor,  # [E] f32 sort depth (> 0 where the gaussian is live)
+    plan: EmissionPlan,
+    cap_total: int,
+    tile_width: int,
+    tile_height: int,
+    n_images: int,
+):
+    """Emission (K8), one stable sort by (tile, depth), the row gather into
+    sorted order (K9) and the per-tile spans (rasterize.py:1111-1184).
+
+    The JAX function sorts unstably and pads each tile's span to 128-slot
+    chunks for its kernel; here one stable sort on the int64 key
+    tile << 32 | float bits of depth keeps equal depths in emission order, as
+    isect_tiles does (depths of live slots are positive, so their bits sort
+    as the floats do; dead slots carry the sentinel tile), and the composite
+    reads each tile's span directly.  Returns (sorted fields [R, cap_total],
+    bounds int32 [T+1], order int64 [cap_total]: the emission slot at each
+    sorted position, flat ids int32 [cap_total] in emission order).
+    """
+    T = n_images * tile_width * tile_height
+    rect = torch.stack([plan.tminx, plan.tminy, plan.w_rect, plan.im]).contiguous()
+    keys, depth_s, flat, fields = expand_emission_aabb(
+        plan.cum_in, rect, depth.contiguous(), table, plan.n_slots, cap_total, tile_width,
+        tile_width * tile_height, T,
+    )
+    bits = depth_s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    keys_s, order = torch.sort((keys.to(torch.int64) << 32) | bits, stable=True)
+    del bits, depth_s
+    fields_s = align_rows(fields, order.to(torch.int32))
+    probes = torch.arange(T + 1, dtype=torch.int64, device=keys.device) << 32
+    bounds = torch.searchsorted(keys_s, probes, side="left", out_int32=True)
+    return fields_s, bounds, order, flat
+
+
+def reduce_slot_grads(
+    v_sorted: torch.Tensor,  # [R, P] per-slot gradients at the sorted positions
+    order: torch.Tensor,  # [P] int64 emission slot of each sorted position
+    cum_in: torch.Tensor,  # [E] i32 the plan's inclusive slot cumsum
+    n_slots: torch.Tensor,  # [1] i32
+) -> torch.Tensor:
+    """Per-gaussian sums [R, E] (rasterize.py:1187-1215): one scatter back to
+    emission order, where a gaussian's slots are contiguous, then K5 over
+    each gaussian's slot run clamped to n_slots.  Dummy slots lie in no
+    tile's span and truncated ones past n_slots, so both add exactly 0."""
+    v_emit = torch.empty_like(v_sorted).index_copy_(1, order, v_sorted)
+    seg = torch.minimum(torch.cat([torch.zeros_like(cum_in[:1]), cum_in]), n_slots)
+    return segment_rowsum(v_emit, seg.to(torch.int32))

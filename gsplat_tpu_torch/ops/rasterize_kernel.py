@@ -32,7 +32,8 @@ MAX_CHANNELS = 32  # the kernel is instantiated for D in [1, 32]
 _PLAIN_BUDGET = 1 << 24
 
 
-def _tile_batches(counts: torch.Tensor, n_pix: int) -> Iterator[Tuple[int, int, int]]:
+def _tile_batches(counts: torch.Tensor, n_pix: int,
+                  budget: int = _PLAIN_BUDGET) -> Iterator[Tuple[int, int, int]]:
     """Consecutive tile ranges [t0, t1) whose padded work fits the budget;
     yields (t0, t1, longest span in the range)."""
     c = counts.tolist()
@@ -42,7 +43,7 @@ def _tile_batches(counts: torch.Tensor, n_pix: int) -> Iterator[Tuple[int, int, 
         t1 = t0 + 1
         while t1 < len(c):
             nxt = max(longest, c[t1], 1)
-            if (t1 + 1 - t0) * n_pix * nxt > _PLAIN_BUDGET:
+            if (t1 + 1 - t0) * n_pix * nxt > budget:
                 break
             longest = nxt
             t1 += 1

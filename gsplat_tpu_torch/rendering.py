@@ -1,9 +1,9 @@
-"""Public rasterization API, classic pinhole path.
+"""Public rasterization API: the classic pinhole path and 2DGS surfels.
 
 Port of `gsplat_tpu/rendering.py` (render-mode predicates and
 _campos_from_viewmats :46-80, render_projected :83-127, rasterization
-:130-680 on the classic path): projection -> SH or broadcast features ->
-tight plan, emission, sort and composite.  Shapes are static: the
+:130-680 on the classic path, rasterization_2dgs :683-813): projection ->
+SH or broadcast features -> plan, emission, sort and composite.  Shapes are static: the
 intersection worklist has a fixed capacity (`isect_capacity`) with an
 overflow flag in `meta`.  PyTorch runs eagerly, so nothing is jitted.
 
@@ -23,8 +23,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .ops.projection import fully_fused_projection
+from .ops.projection2d import fully_fused_projection_2dgs
 from .ops.rasterize import TILE, _round_up, rasterize_to_pixels
+from .ops.rasterize2d import rasterize_to_pixels_2dgs
 from .ops.sh import spherical_harmonics
+from .utils.geometry import depth_to_normal
 
 _COLOR_MODES = {"RGB", "RGB-d", "RGB-Ed", "RGB+D", "RGB+ED"}
 _DEPTH_MODES = {"D", "ED", "RGB+D", "RGB+ED"}
@@ -299,3 +302,108 @@ def rasterization(
     if render_extra is not None:
         meta["render_extra_signals"] = render_extra
     return render_colors, render_alphas, meta
+
+
+_MODES_2DGS = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
+
+
+def rasterization_2dgs(
+    means: torch.Tensor,  # [N, 3]
+    quats: torch.Tensor,  # [N, 4]
+    scales: torch.Tensor,  # [N, 3]
+    opacities: torch.Tensor,  # [N]
+    colors: torch.Tensor,  # [(C,) N, D] or [N, K, D] SH
+    viewmats: torch.Tensor,  # [C, 4, 4]
+    Ks: torch.Tensor,  # [C, 3, 3]
+    width: int,
+    height: int,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    sh_degree: Optional[int] = None,
+    tile_size: int = TILE,
+    backgrounds: Optional[torch.Tensor] = None,  # [C, D]
+    render_mode: str = "RGB",
+    depth_mode: str = "expected",  # "expected" | "median"
+    isect_capacity: Optional[int] = None,
+    densify: Optional[torch.Tensor] = None,  # [C, N, 2] screen-gradient carrier
+) -> Tuple[torch.Tensor, ...]:
+    """Rasterize 2D surfel gaussians (2DGS).
+
+    Returns (render_colors [C, H, W, X], render_alphas [C, H, W, 1],
+    render_normals [C, H, W, 3] in the world frame, normals_from_depth
+    [C, H, W, 3] or None, render_distort [C, H, W, 1], render_median
+    [C, H, W, 1], meta).  The depth channel is always rendered last (it drives
+    the distortion and the median); X drops it for RGB.  `densify` (zeros,
+    requires_grad) receives the screen gradient that the default strategy
+    reads, as meta["gradient_2dgs"].
+    """
+    if render_mode not in _MODES_2DGS:
+        raise ValueError(f"unsupported 2DGS render_mode: {render_mode!r}")
+    if depth_mode not in ("expected", "median"):
+        raise ValueError(f"depth_mode must be 'expected' or 'median', got {depth_mode!r}")
+    has_color = render_mode_has_color(render_mode)
+    has_depth = render_mode_has_depth_channel(render_mode)
+    C = viewmats.shape[-3]
+    N = means.shape[-2]
+
+    radii, means2d, depths, ray_transforms, normals = fully_fused_projection_2dgs(
+        means, quats, scales, viewmats, Ks, width, height, near_plane=near_plane,
+        far_plane=far_plane,
+    )
+    op = opacities[None].expand(C, N)
+    if has_color:
+        if sh_degree is not None:
+            dirs = means[None, :, :] - _campos_from_viewmats(viewmats)[:, None, :]
+            feats = spherical_harmonics(sh_degree, dirs, colors, masks=(radii > 0).all(dim=-1))
+            feats = torch.clamp(feats + 0.5, min=0.0)
+        else:
+            feats = (colors[None] if colors.dim() == 2 else colors).expand(C, N, colors.shape[-1])
+        feats = torch.cat([feats, depths[..., None]], dim=-1)
+    else:
+        feats = depths[..., None]
+    D_out = feats.shape[-1]
+
+    if isect_capacity is None:
+        isect_capacity = _round_up(max(4 * C * N, DEFAULT_CHUNK), DEFAULT_CHUNK)
+    bg = backgrounds
+    if bg is not None and bg.shape[-1] < D_out:
+        bg = torch.nn.functional.pad(bg, (0, D_out - bg.shape[-1]))
+
+    render, alphas, render_n, distort, median, aux = rasterize_to_pixels_2dgs(
+        means2d, ray_transforms.reshape(C, N, 9), feats, normals, op, width, height, radii,
+        depths, isect_capacity, backgrounds=bg, tile_size=tile_size, densify=densify,
+    )
+    if render_mode_has_expected_depth(render_mode):
+        depth_ch = render[..., -1:] / torch.clamp(alphas, min=1e-10)
+        render = torch.cat([render[..., :-1], depth_ch], dim=-1)
+    render_full = render
+    if has_color and not has_depth:
+        render = render[..., :-1]
+
+    # the rendered normals are in the camera frame: R_cw^T n, elementwise
+    R_cw = viewmats[..., :3, :3]  # [C, 3, 3]
+    render_normals = (R_cw[:, None, None, :, :] * render_n[..., :, None]).sum(dim=-2)
+
+    normals_from_depth = None
+    if has_color and has_depth:
+        depth_for_normal = median if depth_mode == "median" else render_full[..., -1:]
+        normals_from_depth = depth_to_normal(depth_for_normal, torch.linalg.inv(viewmats), Ks)
+
+    meta = {
+        "radii": radii,
+        "means2d": means2d,
+        "depths": depths,
+        "ray_transforms": ray_transforms,
+        "opacities": op,
+        "normals": normals,
+        "tiles_per_gauss": aux["tiles_per_gauss"],
+        "width": width,
+        "height": height,
+        "tile_size": tile_size,
+        "n_cameras": C,
+        "n_isects": aux["n_isects"],
+        "isect_overflow": aux["isect_overflow"],
+        "render_distort": distort,
+        "gradient_2dgs": densify,
+    }
+    return render, alphas, render_normals, normals_from_depth, distort, median, meta

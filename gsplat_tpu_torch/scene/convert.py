@@ -8,16 +8,17 @@ a raw-parameter GaussianScene; GaussianInferenceScene.from_gaussian_scene
 applies the activations.
 
 `train_state_from_numpy` / `train_state_to_numpy` carry a whole training
-state (parameters, `alive`, Adam moments and step count) across in the
-flat layout of that checkpoint (`p_*`, `mu_*`, `nu_*`, `opt_count`,
-`alive`; examples/simple_trainer.py:_save), so a checkpoint of either
-trainer loads in the other.
+state (parameters, `alive`, Adam moments and step count, and the strategy's
+state) across in the flat layout of that checkpoint (`p_*`, `mu_*`, `nu_*`,
+`opt_count`, `alive`, `ss_*`; examples/simple_trainer.py:_save), so a
+checkpoint of either trainer loads in the other.  The default strategy's
+`scene_scale` is a float in the state and a 0-d array in the file.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, NamedTuple, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -61,6 +62,7 @@ class TrainState(NamedTuple):
     params: Dict[str, torch.Tensor]  # raw parameters, capacity-padded
     alive: torch.Tensor  # [cap] bool
     opt_state: AdamState
+    strategy_state: Dict[str, Any]  # the `ss_*` entries; scene_scale a float
 
 
 def train_state_from_numpy(flat: Mapping[str, np.ndarray], *, device: DeviceLike = None) -> TrainState:
@@ -81,15 +83,24 @@ def train_state_from_numpy(flat: Mapping[str, np.ndarray], *, device: DeviceLike
     cap = next(iter(params.values())).shape[0]
     alive = (torch.from_numpy(np.array(flat["alive"], dtype=bool)).to(dev)
              if "alive" in flat else torch.ones(cap, dtype=torch.bool, device=dev))
-    return TrainState(params, alive, AdamState(mu=mu, nu=nu, count=count))
+    strategy_state = {
+        k[3:]: (float(v) if k == "ss_scene_scale" else torch.from_numpy(np.array(v)).to(dev))
+        for k, v in flat.items() if k.startswith("ss_")
+    }
+    return TrainState(params, alive, AdamState(mu=mu, nu=nu, count=count), strategy_state)
 
 
 def train_state_to_numpy(params: Mapping[str, torch.Tensor], alive: torch.Tensor,
-                         opt_state: AdamState) -> Dict[str, np.ndarray]:
-    """The flat checkpoint layout of a training state, as numpy arrays."""
+                         opt_state: AdamState,
+                         strategy_state: Optional[Mapping[str, Any]] = None,
+                         ) -> Dict[str, np.ndarray]:
+    """The flat checkpoint layout of a training state, as numpy arrays; a
+    float of the strategy state becomes a 0-d array."""
     flat = {"alive": alive.cpu().numpy(), "opt_count": opt_state.count.cpu().numpy()}
     for k, v in params.items():
         flat[f"p_{k}"] = v.detach().cpu().numpy()
         flat[f"mu_{k}"] = opt_state.mu[k].cpu().numpy()
         flat[f"nu_{k}"] = opt_state.nu[k].cpu().numpy()
+    for k, v in (strategy_state or {}).items():
+        flat[f"ss_{k}"] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
     return flat

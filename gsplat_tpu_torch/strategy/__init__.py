@@ -1,4 +1,5 @@
 from .base import Strategy
+from .default import DefaultStrategy
 from .mcmc import MCMCStrategy
 
-__all__ = ["MCMCStrategy", "Strategy"]
+__all__ = ["DefaultStrategy", "MCMCStrategy", "Strategy"]

@@ -1,10 +1,10 @@
-"""Topology operations on capacity-padded gaussian parameter dicts (MCMC).
+"""Topology operations on capacity-padded gaussian parameter dicts.
 
-Port of `gsplat_tpu/strategy/ops.py:33-46, :201-396`.  Every tensor has a
-static capacity and an `alive` mask: "adding" gaussians writes into free
-slots and "removing" clears mask bits.  Slots that receive new gaussians get
-zeroed Adam moments.  `duplicate`, `split`, `remove` and `reset_opa` belong
-to the default strategy and are not ported yet.
+Port of `gsplat_tpu/strategy/ops.py` (the default strategy's _ranked_pairs,
+duplicate, split, remove and reset_opa :47-198; MCMC's relocation, sampling
+and noise :201-396).  Every tensor has a static capacity and an `alive`
+mask: "adding" gaussians writes into free slots and "removing" clears mask
+bits.  Slots that receive new gaussians get zeroed Adam moments.
 
 Where the JAX functions pad index lists to the capacity with out-of-range
 entries that its scatters drop, these build the exact index lists (boolean
@@ -52,6 +52,103 @@ def _tree_zero_at(tree: Any, idx: torch.Tensor):
         for v in d.values():
             v[idx] = 0
     return tree
+
+
+def _ranked_pairs(mask: torch.Tensor, free: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pair the k-th masked slot with the k-th free slot, for as many as both
+    have: returns (dst, src), params[dst[k]] to be written from src[k]."""
+    src = torch.nonzero(mask)[:, 0]
+    dst = torch.nonzero(free)[:, 0]
+    n = min(src.numel(), dst.numel())
+    return dst[:n], src[:n]
+
+
+@torch.no_grad()
+def duplicate(
+    params: Dict[str, torch.Tensor],
+    opt_moments: Any,  # dict(s) shaped like params, e.g. (mu, nu)
+    alive: torch.Tensor,  # [cap] bool
+    mask: torch.Tensor,  # [cap] bool gaussians to duplicate
+    extra: Optional[Dict[str, torch.Tensor]] = None,  # per-gaussian sidecar rows
+):
+    """Copy masked gaussians into free slots, which get zeroed moments;
+    `extra` rows are copied parent to child.  Returns (params, moments,
+    alive) and, with `extra`, the sidecar dict too."""
+    dst, src = _ranked_pairs(mask & alive, ~alive)
+    _tree_write(params, dst, src)
+    _tree_zero_at(opt_moments, dst)
+    alive = alive.clone()
+    alive[dst] = True
+    if extra is not None:
+        return params, opt_moments, alive, _tree_write(extra, dst, src)
+    return params, opt_moments, alive
+
+
+@torch.no_grad()
+def split(
+    params: Dict[str, torch.Tensor],
+    opt_moments: Any,
+    alive: torch.Tensor,
+    mask: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    revised_opacity: bool = False,
+    extra: Optional[Dict[str, torch.Tensor]] = None,
+    sample_axes: Tuple[int, ...] = (0, 1, 2),
+    noise: Optional[torch.Tensor] = None,  # [2, cap, 3] standard normal samples
+):
+    """Split each masked gaussian in two: both samples drawn from it (mean +
+    R S n), scales shrunk by 1.6, the first in its own slot and the second in
+    a free slot, both with zeroed moments.  `sample_axes` restricts the
+    sampling to those local axes (a surfel's normal-axis scale gets no render
+    gradient, so the 2DGS trainer passes (0, 1)).  The noise is drawn as the
+    JAX package draws it, [2, cap, 3], unless given."""
+    cap = alive.shape[0]
+    mask = mask & alive
+    dst, src = _ranked_pairs(mask, ~alive)
+    means = params["means"]
+    scales = torch.exp(params["scales"])
+    if tuple(sample_axes) != (0, 1, 2):
+        axes = torch.tensor([1.0 if i in tuple(sample_axes) else 0.0 for i in range(3)],
+                            dtype=scales.dtype, device=scales.device)
+        scales = scales * axes
+    if noise is None:
+        noise = torch.randn((2, cap, 3), generator=generator, device=means.device,
+                            dtype=means.dtype)
+    R = quat_to_rotmat(params["quats"])  # [cap, 3, 3]
+    samples = (R[None] * (scales[None] * noise)[:, :, None, :]).sum(dim=-1)  # [2, cap, 3]
+
+    sel = torch.nonzero(mask)[:, 0]
+    child_means = means[src] + samples[1][src]
+    if revised_opacity:
+        o = torch.sigmoid(params["opacities"][sel])
+        new_op = torch.logit(torch.clamp(1.0 - torch.sqrt(1.0 - o), 1e-7, 1.0 - 1e-7))
+        params["opacities"][sel] = new_op
+    means[sel] = means[sel] + samples[0][sel]
+    params["scales"][sel] = params["scales"][sel] - math.log(1.6)
+    _tree_write(params, dst, src)
+    means[dst] = child_means
+    _tree_zero_at(opt_moments, sel)
+    _tree_zero_at(opt_moments, dst)
+    alive = alive.clone()
+    alive[dst] = True
+    if extra is not None:
+        return params, opt_moments, alive, _tree_write(extra, dst, src)
+    return params, opt_moments, alive
+
+
+def remove(alive: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Deactivate masked gaussians; their slots are rewritten when reused."""
+    return alive & ~mask
+
+
+@torch.no_grad()
+def reset_opa(params: Dict[str, torch.Tensor], opt_moments: Any, value: float):
+    """Clamp opacities to at most logit(value) and zero their moments, in
+    place."""
+    params["opacities"].clamp_(max=math.log(value / (1.0 - value)))
+    for d in _dicts(opt_moments):
+        d["opacities"].zero_()
+    return params, opt_moments
 
 
 def make_binoms(n_max: int = 51, device=None) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """The 3DGS trainer: render -> l1 + ssim -> backward -> selective Adam ->
-MCMC strategy, on a capacity-padded model with an `alive` mask.
+densification strategy (default or MCMC), on a capacity-padded model with an
+`alive` mask.
 
 Port of `examples/simple_trainer.py` (Config, knn_mean_dist, create_splats,
-Runner.__init__ on its npz + mcmc branch, render, make_train_step,
-make_update_step, train, _make_npz_targets, eval with PSNR only, _save,
-_load) for the float32 payload path (the JAX trainer's `pack_payload=False,
-pack_grads=False`).  The model has a static capacity (`cap_max`) as in the
-JAX trainer, so the two compare step by step: the same seed gives the same
-initial parameters and the same batch order.
+Runner.__init__ on its npz branch with either strategy, render,
+make_train_step, make_update_step, train, _make_npz_targets, eval with PSNR
+only, _save, _load) for the float32 payload path (the JAX trainer's
+`pack_payload=False, pack_grads=False`).  The model has a static capacity
+(`capacity`, 0 meaning 6x the initial points, for the default strategy;
+`cap_max` for MCMC) as in the JAX trainer, so the two compare step by step:
+the same seed gives the same initial parameters and the same batch order.
 
 The data is an npz-like mapping {means3d [N, 3], colors [N, 3] in 0..255,
 viewmats [V, 4, 4], Ks [V, 3, 3], width, height}: pass it as `data`, or name
@@ -15,9 +17,9 @@ a `.npz` file in `Config.data_dir` (or the GSPLAT_TPU_TEST_DATA environment
 variable).  Targets are clean renders of the full point cloud; the last view
 is held out.  The trainer runs on the card unless `device="cpu"`.
 
-Not ported yet (ROADMAP Queue 1): the default strategy (item 4), the packed
-payloads (item 5), and pose / bilateral-grid / appearance / PPISP options,
-the viewer, TensorBoard, trajectories, PLY export and compression (item 12).
+Not ported yet (ROADMAP Queue 1): the packed payloads (item 5), and pose /
+bilateral-grid / appearance / PPISP options, the viewer, TensorBoard,
+trajectories, PLY export and compression (item 12).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from .losses import l1_loss, ssim_loss
 from .optimizers import AdamState, adam_init, selective_adam_update
 from .rendering import rasterization
 from .scene.convert import train_state_from_numpy, train_state_to_numpy
-from .strategy import MCMCStrategy
+from .strategy import DefaultStrategy, MCMCStrategy
 from .training import exponential_lr
 
 SH_C0 = 0.28209479177387814
@@ -45,7 +47,7 @@ SH_C0 = 0.28209479177387814
 
 @dataclasses.dataclass
 class Config:
-    strategy: str = "mcmc"  # only "mcmc" is ported
+    strategy: str = "default"  # "default" | "mcmc"
     data: str = "npz"  # only "npz" is ported
     data_dir: str = ""  # path of the .npz file when no arrays are passed
     result_dir: str = "results/run"
@@ -61,8 +63,11 @@ class Config:
     isect_capacity: int = 4 * 1024 * 1024
     # row-record capacity of the rasterizer's tight plan; 0 = isect_capacity // 2
     row_capacity: int = 0
+    capacity: int = 0  # default-strategy capacity; 0 = 6x the initial points
     cap_max: int = 1_000_000  # MCMC capacity
     refine_every: int = 100
+    # the default strategy's densify threshold (mean screen-gradient norm in pixels)
+    grow_grad2d: float = 2e-4
     eval_every: int = 7000
     save_every: int = 7000
     opacity_reg: float = 0.0
@@ -132,13 +137,14 @@ class Trainer:
     loop, one `run_step` per step.  `train_step` and `update` are usable on
     their own."""
 
+    # local scale axes the default strategy tests and samples; the surfel
+    # trainer passes (0, 1)
+    strategy_scale_axes: Tuple[int, ...] = (0, 1, 2)
+
     def __init__(self, cfg: Config, data: Optional[Mapping[str, Any]] = None,
                  device: DeviceLike = None):
-        if cfg.strategy != "mcmc":
-            raise NotImplementedError(
-                f"strategy {cfg.strategy!r}: only 'mcmc' is ported (the default strategy is "
-                "ROADMAP Queue 1 item 4)"
-            )
+        if cfg.strategy not in ("default", "mcmc"):
+            raise ValueError(f"strategy must be 'default' or 'mcmc', got {cfg.strategy!r}")
         if cfg.data != "npz":
             raise NotImplementedError(
                 f"data {cfg.data!r}: only 'npz' is ported (the COLMAP loader is ROADMAP "
@@ -169,12 +175,21 @@ class Trainer:
         centers = np.linalg.inv(self.viewmats)[:, :3, 3]
         self.scene_scale = float(np.linalg.norm(centers - centers.mean(0), axis=1).max()) * 1.1
 
-        self.strategy = MCMCStrategy(
-            cap_max=cfg.cap_max, refine_every=cfg.refine_every,
-            noise_injection_stop_iter=cfg.mcmc_noise_stop,
-        )
-        self.strategy_state = self.strategy.initialize_state(self.device)
-        self.capacity = cfg.cap_max
+        if cfg.strategy == "mcmc":
+            self.strategy = MCMCStrategy(
+                cap_max=cfg.cap_max, refine_every=cfg.refine_every,
+                noise_injection_stop_iter=cfg.mcmc_noise_stop,
+            )
+            self.strategy_state = self.strategy.initialize_state(self.device)
+            self.capacity = cfg.cap_max
+        else:
+            self.capacity = cfg.capacity or int(len(points) * 6)
+            self.strategy = DefaultStrategy(
+                refine_every=cfg.refine_every, grow_grad2d=cfg.grow_grad2d,
+                scale_axes=self.strategy_scale_axes,
+            )
+            self.strategy_state = self.strategy.initialize_state(
+                self.capacity, scene_scale=self.scene_scale, device=self.device)
         # the neighbour search over the full cloud runs once: the initial
         # scales and the targets share it when nothing is subsampled
         self._full_dist = knn_mean_dist(self._full_points)
@@ -212,10 +227,16 @@ class Trainer:
             means2d_offset=offset, absgrad=absgrad,
         )
 
-    def loss_fn(self, params, alive, viewmats, Ks, pixels, sh_degree, offset=None):
+    @property
+    def absgrad(self) -> bool:
+        """The default strategy can ask for AbsGS screen gradients."""
+        return isinstance(self.strategy, DefaultStrategy) and self.strategy.absgrad
+
+    def loss_fn(self, params, alive, viewmats, Ks, pixels, sh_degree, offset=None, step=0):
         """The training loss and the render's meta."""
         cfg = self.cfg
-        colors, _, meta = self.render(params, alive, viewmats, Ks, sh_degree, offset=offset)
+        colors, _, meta = self.render(params, alive, viewmats, Ks, sh_degree, offset=offset,
+                                      absgrad=self.absgrad)
         colors = torch.clamp(colors, 0.0, 1.0)
         loss = l1_loss(colors, pixels) * (1.0 - cfg.ssim_lambda)
         loss = loss + ssim_loss(colors, pixels) * cfg.ssim_lambda
@@ -227,14 +248,15 @@ class Trainer:
                 torch.where(alive[:, None], torch.exp(params["scales"]), 0.0))
         return loss, meta
 
-    def train_step(self, params, alive, viewmats, Ks, pixels, sh_degree: int):
+    def train_step(self, params, alive, viewmats, Ks, pixels, sh_degree: int, step: int = 0):
         """One forward and backward.  Returns (loss, gradients keyed like
         params, screen-space gradient [C, cap, 2], radii, visibility [cap],
         isect_overflow)."""
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         offset = torch.zeros((viewmats.shape[0], self.capacity, 2), dtype=torch.float32,
                              device=self.device, requires_grad=True)
-        loss, meta = self.loss_fn(leaves, alive, viewmats, Ks, pixels, sh_degree, offset=offset)
+        loss, meta = self.loss_fn(leaves, alive, viewmats, Ks, pixels, sh_degree, offset=offset,
+                                  step=step)
         loss.backward()
         grads = {k: v.grad for k, v in leaves.items()}
         radii = meta["radii"]
@@ -260,32 +282,43 @@ class Trainer:
     def run_step(self, step: int, view_ids: np.ndarray, viewmats, Ks, pixels) -> Dict[str, Any]:
         """One whole training step on the views `view_ids` of the train set
         (`viewmats`, `Ks`, `pixels` hold every train view): forward, backward,
-        Adam, then the strategy's refine and noise.  Updates the model and the
-        optimizer state; returns {step, view, sh_degree, refined, noised} and
-        `loss` and `overflow` as tensors, which the step does not wait for."""
+        Adam, then the strategy: the default strategy's statistics, refine and
+        opacity reset, or MCMC's refine and noise.  Updates the model and the
+        optimizer state; returns {step, view, sh_degree, refined, reset,
+        noised} and `loss` and `overflow` as tensors, which the step does not
+        wait for."""
         sh_degree = self.sh_degree_at(step)
         idx = torch.from_numpy(view_ids).to(self.device)
-        loss, grads, _, _, visibility, overflow = self.train_step(
-            self.params, self.alive, viewmats[idx], Ks[idx], pixels[idx], sh_degree
+        loss, grads, g_screen, radii, visibility, overflow = self.train_step(
+            self.params, self.alive, viewmats[idx], Ks[idx], pixels[idx], sh_degree, step=step
         )
         lr_scale = exponential_lr(step, 1.0, self.cfg.max_steps)
         self.params, self.opt_state = self.update(self.params, self.opt_state, grads,
                                                   visibility, lr_scale)
         del grads
+        moments = (self.opt_state.mu, self.opt_state.nu)
         refined = self.strategy.should_refine(step)
-        if refined:
-            self.params, moments, self.alive = self.strategy.refine(
-                self.params, (self.opt_state.mu, self.opt_state.nu), self.alive,
-                self.strategy_state, self.generator,
-            )
-            self.opt_state = self.opt_state._replace(mu=moments[0], nu=moments[1])
-        noised = self.strategy.should_inject_noise(step)
-        if noised:
-            self.params = self.strategy.inject_noise(
-                self.params, self.alive, self.lrs["means"] * lr_scale, self.generator
-            )
+        reset = noised = False
+        if isinstance(self.strategy, DefaultStrategy):
+            self.strategy.update_state(self.strategy_state, g_screen, radii, self.width,
+                                       self.height, len(view_ids))
+            if refined:
+                self.params, moments, self.alive, _ = self.strategy.refine(
+                    self.params, moments, self.alive, self.strategy_state, step, self.generator)
+            reset = self.strategy.should_reset_opa(step)
+            if reset:
+                self.params, moments = self.strategy.reset_opa(self.params, moments)
+        else:
+            if refined:
+                self.params, moments, self.alive = self.strategy.refine(
+                    self.params, moments, self.alive, self.strategy_state, self.generator)
+            noised = self.strategy.should_inject_noise(step)
+            if noised:
+                self.params = self.strategy.inject_noise(
+                    self.params, self.alive, self.lrs["means"] * lr_scale, self.generator)
+        self.opt_state = self.opt_state._replace(mu=moments[0], nu=moments[1])
         return dict(step=step, view=int(view_ids[0]), sh_degree=sh_degree, loss=loss,
-                    overflow=overflow, refined=refined, noised=noised)
+                    overflow=overflow, refined=refined, reset=reset, noised=noised)
 
     def train(self, targets: Optional[torch.Tensor] = None):
         """Run steps start_step..max_steps-1.  `targets` are the training
@@ -393,16 +426,15 @@ class Trainer:
     # -------------------------------------------------------------- checkpoint
 
     def _save(self, step: int) -> str:
-        """Full-state checkpoint in the JAX trainer's layout.  `key` and
-        `pose_deltas` are written only so that its loader accepts the file;
-        this trainer keeps neither."""
+        """Full-state checkpoint in the JAX trainer's layout, the strategy's
+        state included.  `key` and `pose_deltas` are written only so that its
+        loader accepts the file; this trainer keeps neither."""
         out = os.path.join(self.cfg.result_dir, f"ckpt_{step}.npz")
-        flat = train_state_to_numpy(self.params, self.alive, self.opt_state)
+        flat = train_state_to_numpy(self.params, self.alive, self.opt_state,
+                                    self.strategy_state)
         flat["step"] = np.asarray(step)
         flat["key"] = np.array([0, self.cfg.seed & 0xFFFFFFFF], np.uint32)
         flat["pose_deltas"] = np.zeros((len(self.train_views), 9), np.float32)
-        for k, v in self.strategy_state.items():
-            flat[f"ss_{k}"] = v.cpu().numpy()
         np.savez(out, **flat)
         print(f"saved {out}", flush=True)
         return out
@@ -413,21 +445,26 @@ class Trainer:
             flat = {k: d[k] for k in d.files}
         state = train_state_from_numpy(flat, device=self.device)
         if state.alive.shape[0] != self.capacity:
-            raise ValueError(f"{path}: capacity {state.alive.shape[0]} != cap_max {self.capacity}")
-        self.params, self.alive, self.opt_state = state
+            raise ValueError(f"{path}: capacity {state.alive.shape[0]} != {self.capacity}")
+        self.params, self.alive, self.opt_state = state.params, state.alive, state.opt_state
+        # the strategy's own entries, as the JAX trainer restores them
+        for k in self.strategy_state:
+            if k in state.strategy_state:
+                self.strategy_state[k] = state.strategy_state[k]
         self.start_step = int(flat["step"]) + 1
         print(f"resumed from {path} at step {self.start_step}", flush=True)
 
 
-def config_from_args(argv=None) -> Tuple[Config, Optional[str]]:
-    """Parse `[mcmc] --device D --field value ...` into (Config, device); the
-    mcmc command gets the regularizers it needs (0.01 each) unless set."""
+def config_from_args(argv=None, config_cls=Config) -> Tuple[Config, Optional[str]]:
+    """Parse `[default|mcmc] --device D --field value ...` into (config,
+    device); the mcmc command gets the regularizers it needs (0.01 each)
+    unless set."""
     import argparse
 
     p = argparse.ArgumentParser()
-    p.add_argument("strategy", choices=["mcmc"], nargs="?", default="mcmc")
+    p.add_argument("strategy", choices=["default", "mcmc"], nargs="?", default="default")
     p.add_argument("--device", default=None, help="the card unless 'cpu'")
-    for f in dataclasses.fields(Config):
+    for f in dataclasses.fields(config_cls):
         if f.name == "strategy":
             continue
         t = type(f.default)
@@ -436,9 +473,10 @@ def config_from_args(argv=None) -> Tuple[Config, Optional[str]]:
         p.add_argument(f"--{f.name}", type=t, default=f.default)
     args = vars(p.parse_args(argv))
     device = args.pop("device")
-    cfg = Config(**args)
-    if cfg.opacity_reg == 0.0:
-        cfg.opacity_reg = 0.01
-    if cfg.scale_reg == 0.0:
-        cfg.scale_reg = 0.01
+    cfg = config_cls(**args)
+    if cfg.strategy == "mcmc":
+        if cfg.opacity_reg == 0.0:
+            cfg.opacity_reg = 0.01
+        if cfg.scale_reg == 0.0:
+            cfg.scale_reg = 0.01
     return cfg, device

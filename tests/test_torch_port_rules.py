@@ -19,7 +19,8 @@ from gsplat_tpu_torch.scene import (
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gsplat_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "simple_trainer_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "simple_trainer_torch.py",
+    ROOT / "examples" / "simple_trainer_2dgs_torch.py"]
 
 
 def _imports(path):
@@ -252,3 +253,70 @@ def test_rasterize_gradients_match_the_cpu_on_the_card():
         assert torch.equal(x, y)
         # sums over pixels and slots in another order: the JAX suite's tolerance
         assert (x - z).abs().max().item() <= 3e-4 * max(1.0, z.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 4, 32])
+def test_surfel_kernels_match_plain_versions_on_the_card(D):
+    """K8 and K9 exact, K6a bit for bit, K6b within 1e-4 of each row's
+    largest entry and with K6a's live pairs, on a 2DGS scene on the card
+    (D = 32 stages more than 48 KB of shared memory in K6b)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+    from gsplat_tpu_torch.ops import rasterize2d_kernel as t2
+    from gsplat_tpu_torch.ops.projection2d import fully_fused_projection_2dgs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    C, N, Wd, Hd = 2, 3000, 200, 150
+    means = (torch.rand(N, 3, generator=g, device=dev) - 0.5) * torch.tensor([6.0, 4.5, 4.0], device=dev)
+    means[:, 2] += 6.0
+    quats = torch.randn(N, 4, generator=g, device=dev)
+    scales = torch.rand(N, 3, generator=g, device=dev) * 0.15 + 0.02
+    vm = torch.eye(4, device=dev).repeat(C, 1, 1)
+    vm[1, :3, 3] = torch.tensor([0.2, -0.1, 0.3], device=dev)
+    K = torch.tensor([[150.0, 0, Wd / 2], [0, 150.0, Hd / 2], [0, 0, 1]], device=dev).repeat(C, 1, 1)
+    radii, m2, depths, M, nrm = fully_fused_projection_2dgs(means, quats, scales, vm, K, Wd, Hd)
+    E = C * N
+    tw, th = -(-Wd // 16), -(-Hd // 16)
+    T = C * tw * th
+    cap = 1 << 18
+    plan = tr.make_emission_plan(m2, radii, 16, tw, th, cap)
+    assert not bool(plan.overflow) and int(plan.n_isects) > 0
+    table = torch.cat([m2.reshape(E, 2), M.reshape(E, 9), torch.rand(E, 1, generator=g, device=dev),
+                       torch.rand(E, D - 1, generator=g, device=dev), depths.reshape(E, 1),
+                       nrm.reshape(E, 3)], dim=1)
+    table = torch.where((plan.cnt > 0)[:, None], table, 0.0).t().contiguous()
+    rect = torch.stack([plan.tminx, plan.tminy, plan.w_rect, plan.im]).contiguous()
+    args = (plan.cum_in, rect, depths.reshape(E).contiguous(), table, plan.n_slots, cap, tw,
+            tw * th, T)
+    got, want = tg.expand_emission_aabb(*args), tg.expand_emission_aabb_plain(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    fields_s, bounds, order, _ = tr.expand_sort_align(table, depths.reshape(E), plan, cap, tw, th, C)
+    src = order.to(torch.int32)
+    src[::7] = -1  # padding columns read as 0
+    emitted = got[3]
+    assert torch.equal(tg.align_rows(emitted, src), tg.align_rows_plain(emitted, src))
+
+    kept = torch.empty(T, dtype=torch.int32, device=dev)
+    fargs = (fields_s, bounds, C, tw, th, Wd, Hd)
+    out, t_fin, med = t2.rasterize2d_fwd(*fargs, pair_counts=kept)
+    out_p, t_p, med_p = t2.rasterize2d_fwd_plain(*fargs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_p) and torch.equal(t_fin, t_p) and torch.equal(med, med_p)
+    assert int((med >= 0).sum()) > 0
+
+    v_pix = torch.randn(out.shape, generator=g, device=dev)
+    v_t = torch.randn(t_fin.shape, generator=g, device=dev)
+    live = torch.empty(T, dtype=torch.int32, device=dev)
+    bargs = (*fargs, v_pix, v_t, out, t_fin, med)
+    v_slot = t2.rasterize2d_bwd(*bargs, live_counts=live)
+    v_slot_p, n_live_p = t2.rasterize2d_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(live, kept), "the backward's live pairs differ from the forward's"
+    assert int(live.sum()) == n_live_p > 0
+    assert torch.equal(v_slot, t2.rasterize2d_bwd(*bargs)), "two runs differ"
+    for row, row_p in zip(v_slot, v_slot_p):
+        assert (row - row_p).abs().max().item() <= 1e-4 * row_p.abs().max().item()
+    assert (v_slot[:, int(bounds[-1]):] == 0).all()

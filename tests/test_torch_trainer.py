@@ -252,8 +252,8 @@ def test_checkpoints_load_in_both_trainers(both, tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Trainer(Config(strategy="default", result_dir=str(tmp_path)), data=_tiny_data(),
+    with pytest.raises(ValueError, match="'default' or 'mcmc'"):
+        Trainer(Config(strategy="adc", result_dir=str(tmp_path)), data=_tiny_data(),
                 device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         Trainer(Config(data="colmap", result_dir=str(tmp_path)), data=_tiny_data(), device="cpu")
@@ -267,3 +267,25 @@ def test_cli_parses_the_config():
                                     "cpu", "--fixed_batch", "true", "--means_lr", "1e-3"])
     assert (cfg.max_steps, device, cfg.fixed_batch, cfg.means_lr) == (7, "cpu", True, 1e-3)
     assert cfg.opacity_reg == 0.01 and cfg.scale_reg == 0.01  # the mcmc defaults
+    cfg, _ = config_from_args(["--capacity", "900", "--grow_grad2d", "1e-3"])
+    assert (cfg.strategy, cfg.capacity, cfg.grow_grad2d, cfg.opacity_reg) == ("default", 900,
+                                                                              1e-3, 0.0)
+
+
+def test_default_strategy_is_the_default_and_its_state_survives_a_checkpoint(tmp_path):
+    """The JAX trainer's default (simple_trainer.py:65); its state, with the
+    float scene_scale, is written with the checkpoint and restored from it
+    (simple_trainer.py:1211-1216)."""
+    cfg = Config(**{**_cfg_kw(tmp_path / "a"), "strategy": Config().strategy})
+    assert cfg.strategy == "default"
+    tr = Trainer(cfg, data=_tiny_data(), device="cpu")
+    assert tr.capacity == 6 * 200 and isinstance(tr.strategy_state["scene_scale"], float)
+    tr.strategy_state["grad2d"][:5] = torch.arange(5.0)
+    tr.strategy_state["count"][:5] = 3.0
+    path = tr._save(2)
+    again = Trainer(Config(**{**_cfg_kw(tmp_path / "b", ckpt=path), "strategy": "default"}),
+                    data=_tiny_data(), device="cpu")
+    assert again.start_step == 3
+    for k in ("grad2d", "count"):
+        assert torch.equal(again.strategy_state[k], tr.strategy_state[k])
+    assert again.strategy_state["scene_scale"] == pytest.approx(tr.scene_scale)
