@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's main paths, serving, 3DGS training and 2DGS
-training, on one NVIDIA card and hold each CUDA kernel against its plain
-PyTorch version.
+"""Drive the PyTorch port's main paths, serving, 3DGS training, 2DGS
+training, the 3DGUT render and the AV trainer, on one NVIDIA card and hold
+each CUDA kernel against its plain PyTorch version.
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -70,6 +70,36 @@ Phases:
      median's cotangent set, the depth row of K6b's output equal to the
      count of pixels whose median each slot is; the largest sorted position
      against 2^24.  Each kernel timed, K9 beside torch.index_select.
+ 12. 3DGUT: the same scene's activated parameters render one 3840x2160 view
+     through rasterization(with_ut=True, with_eval3d=True) on a pinhole with
+     OpenCV radial distortion (GUT_RADIAL), RGB-Ed and normals, so that
+     every optional field row of K7a and K7b is live; the intersection
+     capacity is the AABB count of a first pass.  Launch counts are set to 0
+     just before 3 repetitions of the render and the backward of an l1 loss
+     and read just after; K5, K7a, K7b, K8 and K9 must all be > 0.  Each
+     repetition prints its slots, overflow flag, render and backward ms and
+     peak memory; the image, the hit distances and every gradient must be
+     finite, and the gradients nonzero.  Then 3 more are timed whole and
+     traced;
+ 13. eval3d kernels, on one more render's own inputs: K7a bit for bit on the
+     tiles with the longest spans and a seeded sample of the others, its
+     contributing pairs equal to K7b's live pairs in every tile; K7b within
+     1e-5 of each row's largest entry on the same tiles (the per-pixel ray
+     gradients too), and bit for bit from run to run.  Both timed;
+ 14. AV training: av_trainer.AVRunner trains 9 steps of a street scene (the
+     wall and ground of synthetic_scene, 5x larger, 1,000,000 gaussians,
+     cap_max the same), 3 cameras at 1920x1280 and one spinning lidar of
+     64 x 2,650 elements over 360 degrees, elevations +2.4 to -17.6 degrees
+     (the Waymo Open Dataset TOP lidar's range image).  Launch counts are
+     set to 0 just before train() and read just after; K1 to K5 and K7a,
+     K7b, K8, K9 must all be > 0.  Each step prints its ms, loss, peak
+     memory, lidar slots and both lidar losses, which must be finite; the
+     loss must fall.  Then 3 more steps are timed whole and traced;
+ 15. lidar kernels, on one more AV step's lidar render (the hit channel
+     without normals, D = 2, lidar rays): the checks of phase 13 on every
+     tile of the range image.  The `kernels` line keeps the 3DGUT shapes'
+     numbers for K7a and K7b, the larger error of the two checks, and the
+     lidar's under `av_check`.
 It prints one `kernels` JSON line and, last, the `ok` JSON line; any
 failure exits non-zero without it.  The script never falls back to the CPU.
 """
@@ -92,12 +122,15 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gsplat_tpu_torch import _build, rasterization
+from gsplat_tpu_torch import av_trainer as av_mod
 from gsplat_tpu_torch import trainer as trainer_mod
 from gsplat_tpu_torch import trainer_2dgs as trainer2d_mod
 from gsplat_tpu_torch.ops import gather_kernel as gk
 from gsplat_tpu_torch.ops import rasterize as rz
 from gsplat_tpu_torch.ops import rasterize2d as r2d
 from gsplat_tpu_torch.ops import rasterize2d_kernel as r2k
+from gsplat_tpu_torch.ops import rasterize_eval3d as r3d
+from gsplat_tpu_torch.ops import rasterize_eval3d_kernel as r3k
 from gsplat_tpu_torch.ops import rasterize_kernel as rk
 from gsplat_tpu_torch.ops import segsum_kernel as sk
 from gsplat_tpu_torch.strategy import ops as strategy_ops
@@ -105,6 +138,7 @@ from gsplat_tpu_torch.ops.projection import fully_fused_projection
 from gsplat_tpu_torch.ops.sh import spherical_harmonics
 from gsplat_tpu_torch.rendering import _campos_from_viewmats
 from gsplat_tpu_torch.scene import GaussianInferenceScene, Stage, render_scene, splats_from_numpy
+from gsplat_tpu_torch.sensors.lidars import SpinningDirection, make_lidar
 
 SEED = 0
 N_CELL, GRID = 111_785, 5  # 25 cells: 2,794,625 gaussians
@@ -140,12 +174,18 @@ KERNELS = {
     "align_rows": ("csrc/align.cu", "gsplat_tpu/ops/gather_pallas.py:274"),
     "rasterize2d_fwd": ("csrc/rasterize2d_fwd.cu", "gsplat_tpu/ops/rasterize2d_pallas.py:92"),
     "rasterize2d_bwd": ("csrc/rasterize2d_bwd.cu", "gsplat_tpu/ops/rasterize2d_pallas.py:213"),
+    "rasterize_eval3d_fwd": ("csrc/rasterize_eval3d_fwd.cu",
+                             "gsplat_tpu/ops/rasterize_eval3d_pallas.py:122"),
+    "rasterize_eval3d_bwd": ("csrc/rasterize_eval3d_bwd.cu",
+                             "gsplat_tpu/ops/rasterize_eval3d_pallas.py:232"),
 }
 WRAPPERS = {"expand_rows": gk.expand_rows, "expand_emission": gk.expand_emission,
             "rasterize_fwd": rk.rasterize_fwd, "rasterize_bwd": rk.rasterize_bwd,
             "segment_rowsum": sk.segment_rowsum,
             "expand_emission_aabb": gk.expand_emission_aabb, "align_rows": gk.align_rows,
-            "rasterize2d_fwd": r2k.rasterize2d_fwd, "rasterize2d_bwd": r2k.rasterize2d_bwd}
+            "rasterize2d_fwd": r2k.rasterize2d_fwd, "rasterize2d_bwd": r2k.rasterize2d_bwd,
+            "rasterize_eval3d_fwd": r3k.rasterize_eval3d_fwd,
+            "rasterize_eval3d_bwd": r3k.rasterize_eval3d_bwd}
 SERVING_KERNELS = ("expand_rows", "expand_emission", "rasterize_fwd")
 TRAINING_KERNELS = SERVING_KERNELS + ("rasterize_bwd", "segment_rowsum")
 SURFEL_KERNELS = ("expand_emission_aabb", "align_rows", "rasterize2d_fwd", "rasterize2d_bwd",
@@ -161,7 +201,39 @@ SURFEL_SCHEDULE = dict(refine_start_iter=1, refine_every=3, reset_every=6)
 # reset only clamps to twice the threshold).
 PLANT_EVERY, PLANTED_OPACITY = 97, 0.001
 K6A_FLOP_PER_PAIR = 42  # the surfel response per evaluated (pixel, slot), csrc/surfel.cuh
-PLAIN_TILES = (16, 112)  # K6a, K6b plain: the longest spans, then a seeded sample
+PLAIN_TILES = (16, 112)  # K6a, K6b, K7a, K7b plain: the longest spans, then a seeded sample
+EVAL3D_KERNELS = ("expand_emission_aabb", "align_rows", "rasterize_eval3d_fwd",
+                  "rasterize_eval3d_bwd", "segment_rowsum")
+# the 3DGUT phase: one 3840x2160 view of the grid-5 scene through a pinhole
+# with OpenCV radial distortion (k1, k2, k3), every optional eval3d row live
+GUT_RADIAL = (0.08, -0.02, 0.004)
+GUT_REPS = 3
+GUT_KW = dict(sh_degree=3, with_ut=True, with_eval3d=True, render_mode="RGB-Ed",
+              return_normals=True, near_plane=0.01, far_plane=100.0, radius_clip=3.0)
+# the AV phase: synthetic_scene's wall and ground, 5x larger, with 1,000,000
+# gaussians; 3 cameras at the Waymo Open Dataset front-camera size; one
+# spinning lidar laid out as the Waymo TOP lidar's range image
+AV_N, AV_SCALE, AV_STEPS = 1_000_000, 5.0, 9
+AV_WH = (1920, 1280)
+LIDAR_ROWS, LIDAR_COLS, LIDAR_ELEV_DEG = 64, 2650, (2.4, -17.6)
+AV_KERNELS = TRAINING_KERNELS + EVAL3D_KERNELS
+K7A_FLOP_PER_PAIR = 68  # the ray response per evaluated (pixel, slot), csrc/ray3d.cuh
+
+
+def k7a_flop_per_live_pair(D: int, hit: bool, normals: bool) -> int:
+    """A live pair's weight and D colour sums; the hit distance (|s u^|, its
+    square root, hd, its sum) and the flipped normal (n . d, sign, 3 sums)."""
+    return 1 + 2 * (D - hit) + 12 * hit + 12 * normals
+
+
+def k7b_flop_per_live_pair(D: int, F: int) -> int:
+    """What K7b's function needs for a live pair beyond the replay: the
+    channel chain (2D + 15 with normals), E, 1/(1-alpha) and v_alpha (10),
+    v_sigma, v_op and v_c (6), the two cross-product transposes (18), the hit
+    distance (22), hit_t (12), the normalization (14), the nine v_M terms
+    (27), the six ray gradients (36), and one add into each of the F
+    per-slot sums."""
+    return 2 * D + 15 + 10 + 6 + 18 + 22 + 12 + 14 + 27 + 36 + F
 
 
 def k6a_flop_per_live_pair(D: int) -> int:
@@ -372,6 +444,7 @@ def kernel_record(name, launches, err, ms, plain_ms, nbytes, nops, library_ms=No
         "replaces": KERNELS[name][1], "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms,
+        "bytes_bound_ms": t_bytes, "operations_bound_ms": t_ops,
     }
 
 
@@ -1104,19 +1177,7 @@ def check_surfel_kernels(tr, args, launches, timer, log):
     require(torch.equal(out, k6b[9]) and torch.equal(t_fin, k6b[10])
             and torch.equal(med, k6b[11]), "rasterize2d_fwd: a rerun differs from the step's")
     counts = (bounds[1:] - bounds[:-1]).long()
-    n_long, n_rand = PLAIN_TILES
-    longest = torch.argsort(counts, descending=True)[:n_long]
-    rest = torch.ones(T, dtype=torch.bool, device=dev)
-    rest[longest] = False
-    g = torch.Generator(device="cpu").manual_seed(SEED)
-    others = torch.nonzero(rest)[:, 0].cpu()
-    sample = others[torch.randperm(others.numel(), generator=g)[:n_rand]].to(dev)
-    tiles = torch.cat([longest, sample])
-    tiles = tiles[torch.argsort(counts[tiles])]  # batches of like spans
-    tile_of_pixel = (torch.arange(n_images, device=dev)[:, None, None] * (tw * th)
-                     + (torch.arange(H, device=dev)[None, :, None] // 16) * tw
-                     + torch.arange(W, device=dev)[None, None, :] // 16)
-    on_tiles = torch.isin(tile_of_pixel, tiles)
+    tiles, on_tiles = sampled_tiles(counts, n_images, tw, th, W, H, dev)
     t1 = time.perf_counter()
     out_p, t_p, med_p = r2k.rasterize2d_fwd_plain(*k6a, tiles=tiles, budget=1 << 26)
     plain_fwd_ms = (time.perf_counter() - t1) * 1e3
@@ -1198,6 +1259,349 @@ def profile_surfel_step(tr, targets, timer, log) -> None:
     log(json.dumps({"train2dgs_stage": "whole step without refine", "ms": step_ms,
                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
     device_profile(one_step, step_ms, log, "2dgs_step")
+
+
+def gut_params(raw, dev):
+    """The grid-5 scene's activated parameters as leaves: means, quats,
+    scales, opacities, SH coefficients [N, 16, 3]."""
+    f = lambda x: torch.as_tensor(x, device=dev)
+    colors = np.concatenate([raw["sh0"], raw["shN"]], axis=1)
+    return [f(raw["means"]), f(raw["quats"]), torch.exp(f(raw["scales"])),
+            torch.sigmoid(f(raw["opacities"])), f(colors)]
+
+
+def gut_phases(dev, raw, viewmats, K, wh, timer, log):
+    """Phases 12 and 13: the 3DGUT render and gradient at full width, then
+    K7a and K7b against their plain versions on its own inputs.  Returns
+    (launch counts of the render, the K7a and K7b records)."""
+    W, H = wh
+    on_card = dev.type == "cuda"
+    params = gut_params(raw, dev)
+    vm = torch.as_tensor(viewmats[:1], device=dev)
+    Kt = torch.as_tensor(K[None], device=dev)
+    kw = dict(GUT_KW, radial_coeffs=torch.tensor([GUT_RADIAL], device=dev))
+    with torch.no_grad():  # a pass that overflows gives the AABB slot count
+        meta = rasterization(*params, vm, Kt, W, H, isect_capacity=1 << 16, **kw)[2]
+    cap = int(meta["tiles_per_gauss"].sum()) + 4096
+    log(f"3dgut: {params[0].shape[0]} gaussians at {W}x{H}, radial {GUT_RADIAL}, "
+        f"isect_capacity {cap} (the AABB count)")
+    del meta
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tgt = torch.rand((1, H, W, 4), generator=g, device=dev) * torch.tensor([1, 1, 1, 8.0], device=dev)
+    tgt_n = torch.rand((1, H, W, 3), generator=g, device=dev) - 0.5
+
+    def render_and_backward(record=None):
+        leaves = [p.detach().requires_grad_() for p in params]
+        sync(dev)
+        t0 = time.perf_counter()
+        img, alpha, meta = rasterization(*leaves, vm, Kt, W, H, isect_capacity=cap, **kw)
+        loss = (img - tgt).abs().mean() + (meta["render_normals"] - tgt_n).abs().mean()
+        sync(dev)
+        t1 = time.perf_counter()
+        loss.backward()
+        sync(dev)
+        t2 = time.perf_counter()
+        if record is not None:
+            record.update(render_ms=(t1 - t0) * 1e3, backward_ms=(t2 - t1) * 1e3,
+                          loss=float(loss.detach()), n_isects=int(meta["n_isects"]),
+                          overflow=bool(meta["isect_overflow"]),
+                          mean_alpha=float(alpha.detach().mean()),
+                          grads_finite=all(bool(torch.isfinite(x.grad).all()) for x in leaves),
+                          grads_nonzero=all(float(x.grad.abs().max()) > 0 for x in leaves))
+        return img, alpha, meta
+
+    log_memory(dev, "before the 3DGUT renders", log)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    for i in range(GUT_REPS):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        rec = dict(rep=i)
+        img, alpha, meta = render_and_backward(rec)
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        log("3dgut " + json.dumps(rec))
+        require(img.shape == (1, H, W, 4) and meta["render_normals"].shape == (1, H, W, 3),
+                "3dgut: output shapes")
+        require(bool(torch.isfinite(img).all()) and bool(torch.isfinite(alpha).all()),
+                "3dgut: non-finite image")
+        require(not rec["overflow"] and rec["mean_alpha"] > 0, "3dgut: overflow or empty image")
+        require(rec["grads_finite"] and rec["grads_nonzero"], "3dgut: a gradient is not finite or zero")
+        hd = img[0, ..., 3][alpha[0, ..., 0] > 0.9]
+        require(hd.numel() > 0 and bool((hd > 0).all()), "3dgut: no positive hit distance")
+        del img, alpha, meta
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log("3dgut launches " + json.dumps(launches))
+    for name in EVAL3D_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the 3DGUT path")
+    if on_card:
+        unit_ms = timer(render_and_backward, 3)
+        device_profile(render_and_backward, unit_ms, log, "3dgut_render_and_backward")
+
+    # the kernels' own arguments, from one more render and backward
+    probes = {name: Probe(r3d, name, on_card) for name in ("rasterize_eval3d_fwd",
+                                                          "rasterize_eval3d_bwd")}
+    render_and_backward()
+    for p in probes.values():
+        p.restore()
+    args = {name: p.first_args for name, p in probes.items()}
+    del probes
+    if on_card:
+        torch.cuda.empty_cache()
+    log_memory(dev, "before the eval3d kernel checks", log)
+    return launches, check_eval3d_kernels(dev, args, launches, timer, log, "3DGUT render")
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sampled_tiles(counts, n_images, tiles_w, tiles_h, W, H, dev):
+    """The tiles with the longest spans and a seeded sample of the others
+    (PLAIN_TILES), in order of span; and the mask of their pixels."""
+    T = counts.shape[0]
+    n_long, n_rand = PLAIN_TILES
+    longest = torch.argsort(counts, descending=True)[:n_long]
+    rest = torch.ones(T, dtype=torch.bool, device=dev)
+    rest[longest] = False
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    others = torch.nonzero(rest)[:, 0].cpu()
+    sample = others[torch.randperm(others.numel(), generator=gen)[:n_rand]].to(dev)
+    tiles = torch.cat([longest, sample])
+    tiles = tiles[torch.argsort(counts[tiles])]  # batches of like spans
+    tile_of_pixel = (torch.arange(n_images, device=dev)[:, None, None] * (tiles_w * tiles_h)
+                     + (torch.arange(H, device=dev)[None, :, None] // 16) * tiles_w
+                     + torch.arange(W, device=dev)[None, None, :] // 16)
+    return tiles, torch.isin(tile_of_pixel, tiles)
+
+
+@torch.no_grad()
+def check_eval3d_kernels(dev, args, launches, timer, log, what: str, every_tile: bool = False):
+    """K7a bit for bit and K7b within 1e-5 of each row's largest entry (the
+    ray gradients too) against their plain versions on the sampled tiles,
+    or on every tile, the live pairs equal in every tile; each kernel timed.
+    Large outputs are released as the checks go."""
+    on_card = dev.type == "cuda"
+    k7a, k7b = args["rasterize_eval3d_fwd"], args["rasterize_eval3d_bwd"]
+    fields, bounds, rays = k7a[0], k7a[1], k7a[2]
+    n_images, tw, th, W, H, hit, normals = k7a[3:10]
+    T = bounds.shape[0] - 1
+    F = fields.shape[0]
+    D = F - 13 - 3 * hit - 3 * normals
+    D_out = D + 3 * normals
+    n_sorted = int(bounds[-1])
+    kept = torch.zeros(T, dtype=torch.int32, device=dev)
+    n_eval = torch.zeros(T, dtype=torch.int32, device=dev)
+    counted = dict(pair_counts=kept, eval_counts=n_eval) if on_card else {}
+    out, t_fin = r3k.rasterize_eval3d_fwd(*k7a, **counted)
+    require(torch.equal(out, k7b[12]) and torch.equal(t_fin, k7b[13]),
+            "rasterize_eval3d_fwd: a rerun differs from the render's")
+    counts = (bounds[1:] - bounds[:-1]).long()
+    if every_tile:
+        tiles = torch.argsort(counts)  # batches of like spans
+        on_tiles = torch.ones((n_images, H, W), dtype=torch.bool, device=dev)
+    else:
+        tiles, on_tiles = sampled_tiles(counts, n_images, tw, th, W, H, dev)
+    t1 = time.perf_counter()
+    out_p, t_p = r3k.rasterize_eval3d_fwd_plain(*k7a, tiles=tiles, budget=1 << 26)
+    plain_fwd_ms = (time.perf_counter() - t1) * 1e3
+    require(torch.equal(out[on_tiles], out_p[on_tiles]) and torch.equal(t_fin[on_tiles], t_p[on_tiles]),
+            f"rasterize_eval3d_fwd != plain ({what})")
+    del out_p, t_p, out, t_fin
+    n_pairs, n_live = int(n_eval.sum()), int(kept.sum())
+    log(f"rasterize_eval3d_fwd, {what}, at {W}x{H} (hit {hit}, normals {normals}, D {D}): "
+        f"equal to its plain version bit for bit on "
+        f"{tiles.numel()} tiles ({int(counts[tiles].sum())} of {n_sorted} slots, the longest "
+        f"span {int(counts.max())}); {n_pairs} pairs evaluated, {n_live} contributing")
+    pix = n_images * H * W
+    records = [kernel_record(
+        "rasterize_eval3d_fwd", launches["rasterize_eval3d_fwd"], 0.0,
+        timer(lambda: r3k.rasterize_eval3d_fwd(*k7a), 10), plain_fwd_ms,
+        4 * (F * n_sorted + T + 1 + pix * (6 + D_out + 1)),
+        K7A_FLOP_PER_PAIR * n_pairs + k7a_flop_per_live_pair(D, hit, normals) * n_live)]
+    records[-1]["plain_on"] = f"{tiles.numel()} of {T} tiles"
+
+    live = torch.zeros(T, dtype=torch.int32, device=dev)
+    got, got_rays = r3k.rasterize_eval3d_bwd(*k7b, **(dict(live_counts=live) if on_card else {}))
+    require(torch.equal(live, kept), f"rasterize_eval3d_bwd: live pairs differ from the "
+            f"forward's in {int((live != kept).sum())} tiles")
+    again = r3k.rasterize_eval3d_bwd(*k7b)
+    require(torch.equal(got, again[0]) and torch.equal(got_rays, again[1]),
+            "rasterize_eval3d_bwd: two runs differ")
+    del again
+    require(bool((got[:, n_sorted:] == 0).all()), "rasterize_eval3d_bwd: tail not zero")
+    if hit:
+        require(bool((got[13 + 3 + D - 1] == 0).all()), "rasterize_eval3d_bwd: hit row not zero")
+    sel = torch.cat([torch.arange(int(bounds[t]), int(bounds[t + 1]), device=dev)
+                     for t in tiles.tolist()])
+    got = got[:, sel]
+    got_rays = got_rays[on_tiles]
+    if on_card:
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    want, want_rays, n_live_p = r3k.rasterize_eval3d_bwd_plain(*k7b, tiles=tiles, budget=1 << 24)
+    plain_bwd_ms = (time.perf_counter() - t1) * 1e3
+    require(n_live_p == int(live[tiles].sum()) or not on_card,
+            "rasterize_eval3d_bwd: live pairs != plain")
+    want = want[:, sel]
+    if hit:  # the input hit channel's row is exactly zero in both: held above
+        keep = torch.ones(F, dtype=torch.bool, device=dev)
+        keep[13 + 3 + D - 1] = False
+        got, want = got[keep], want[keep]
+    # a row with no cotangent (the lidar's intensity: its loss reads only the
+    # hit distance) is zero in the plain version and must be zero in the kernel
+    zero = (want == 0).all(dim=1)
+    require(bool((got[zero] == 0).all()), f"rasterize_eval3d_bwd ({what}): a row that the plain "
+            f"version leaves zero is not zero")
+    if bool(zero.any()):
+        log(f"rasterize_eval3d_bwd ({what}): rows {torch.nonzero(zero)[:, 0].tolist()} of the "
+            f"compared rows are zero in both")
+    got, want = got[~zero], want[~zero]
+    worst, err7b = rows_close(got, want, 1e-5, f"rasterize_eval3d_bwd ({what})", log)
+    worst_r, err_r = rows_close(got_rays.t(), want_rays[on_tiles].t(), 1e-5,
+                                f"rasterize_eval3d_bwd ray gradients ({what})", log)
+    del got, want, got_rays, want_rays
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"rasterize_eval3d_bwd, {what}: max error {worst:.3g} of the row's largest entry on "
+        f"{tiles.numel()} tiles ({worst_r:.3g} for the ray gradients), {int(live.sum())} live "
+        f"pairs (= the forward's in every tile)")
+    records.append(kernel_record(
+        "rasterize_eval3d_bwd", launches["rasterize_eval3d_bwd"], max(err7b, err_r),
+        timer(lambda: r3k.rasterize_eval3d_bwd(*k7b), 5), plain_bwd_ms,
+        4 * (2 * F * n_sorted + T + 1 + pix * (6 + 2 * (D_out + 1) + 6)),
+        K7A_FLOP_PER_PAIR * n_pairs + k7b_flop_per_live_pair(D, F) * n_live))
+    records[-1]["plain_on"] = f"{tiles.numel()} of {T} tiles"
+    return records
+
+
+def street_scene(dev):
+    """av_trainer.synthetic_scene's layout, AV_SCALE times larger and with
+    AV_N gaussians: half on a wall across the road, half on the ground; 3
+    cameras along the road at 1920x1280 with synthetic_scene's field of
+    view; the lidar at the origin, 64 rows from +2.4 to -17.6 degrees and
+    2,650 columns over 360 degrees, spinning clockwise."""
+    n, scale = AV_N, AV_SCALE
+    rng = np.random.default_rng(SEED)
+    h = n // 2
+    wall = np.c_[np.full(h, 6.0) + rng.normal(0, 0.05, h), rng.uniform(-4, 4, h),
+                 rng.uniform(-1, 2, h)]
+    ground = np.c_[rng.uniform(1, 6, n - h), rng.uniform(-4, 4, n - h),
+                   np.full(n - h, -1.0) + rng.normal(0, 0.05, n - h)]
+    pts = (np.concatenate([wall, ground]) * scale).astype(np.float32)
+    rgb = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
+    W, H = AV_WH
+    R = np.array([[0, -1, 0], [0, 0, -1], [1, 0, 0]], np.float32)
+    viewmats = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    for c in range(3):
+        viewmats[c, :3, :3] = R
+        viewmats[c, :3, 3] = R @ -(np.array([0.0, -1.5 + 1.5 * c, 0.3], np.float32) * scale)
+    f = 70.0 * W / 96  # synthetic_scene's 70 px at 96 wide
+    Ks = np.tile(np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32), (3, 1, 1))
+    lidar = make_lidar(
+        np.deg2rad(np.linspace(*LIDAR_ELEV_DEG, LIDAR_ROWS)).astype(np.float32),
+        (math.pi - np.arange(LIDAR_COLS) * (2 * math.pi / LIDAR_COLS)).astype(np.float32),
+        np.zeros(LIDAR_ROWS, np.float32), SpinningDirection.CLOCKWISE, device=dev)
+    return dict(points=pts, rgb=rgb, viewmats=viewmats, Ks=Ks, W=W, H=H, lidar=lidar,
+                lidar_viewmats=np.eye(4, dtype=np.float32)[None])
+
+
+def av_phase(dev, timer, log):
+    """Phases 14 and 15: the AV trainer at full width, then K7a and K7b
+    against their plain versions on one step's lidar render.  Returns (the
+    launch counts of train(), the K7a and K7b records of the lidar's
+    shapes)."""
+    on_card = dev.type == "cuda"
+    n, steps = AV_N, AV_STEPS
+    t0 = time.perf_counter()
+    scene = street_scene(dev)
+    runner = av_mod.AVRunner(av_mod.Config(max_steps=steps, cap_max=n, seed=SEED), scene,
+                             device=dev)
+    # The runner's own initial scale is 0.3x the distance to a random other
+    # point: at 1M points the scene's size, every gaussian a third of the
+    # view.  Here each starts at the points' spacing on the wall and ground.
+    spacing = math.sqrt(8 * 3 * AV_SCALE**2 / (n / 2))  # the wall's area over its points
+    runner.params["scales"].fill_(math.log(0.5 * spacing))
+    lidar = runner.lidar
+    log(f"av: {n} gaussians, 3 cameras at {AV_WH[0]}x{AV_WH[1]}, lidar {lidar.n_rows}x"
+        f"{lidar.n_columns} over {math.degrees(lidar.fov_horiz_span):.1f} degrees, initial "
+        f"scale {0.5 * spacing:.4f}, set up in {time.perf_counter() - t0:.1f} s")
+
+    # the capacity: the AABB slot counts of the cameras and the lidar, with headroom
+    cams = runner._tensor(scene["viewmats"])
+    Ks = runner._tensor(scene["Ks"])
+    lvm = runner._tensor(scene["lidar_viewmats"])
+    runner.cfg.isect_capacity = 1 << 16
+    with torch.no_grad():
+        n_cam = int(runner.render_cams(runner.params, runner.alive, cams, Ks)[2]["tiles_per_gauss"].sum())
+        n_lidar = int(runner.render_lidar(runner.params, runner.alive, lvm)[2]["tiles_per_gauss"].sum())
+    runner.cfg.isect_capacity = int(1.6 * max(n_cam, n_lidar)) + 4096
+    log(f"av capacities: cameras {n_cam}, lidar {n_lidar} AABB slots -> isect_capacity "
+        f"{runner.cfg.isect_capacity}")
+
+    records, first_inputs = [], []
+    step_fn = runner.train_step
+
+    def recorded_step(inputs):
+        first_inputs[:] = first_inputs or [inputs]
+        sync(dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, lmeta = step_fn(inputs)
+        sync(dev)
+        records.append(dict(
+            step=len(records), ms=(time.perf_counter() - t) * 1e3, loss=float(loss),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+            lidar_slots=int(lmeta["n_isects"]), lidar_overflow=bool(lmeta["isect_overflow"]),
+            lidar_distance_loss=float(lmeta["distance_loss"]),
+            lidar_background_loss=float(lmeta["background_loss"])))
+        return loss, lmeta
+
+    runner.train_step = recorded_step
+    log_memory(dev, "before the AV train()", log)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    runner.train(log=lambda m: None)
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    log(f"av train(): {time.perf_counter() - t0:.1f} s with the targets")
+    del runner.train_step
+    for r in records:
+        log("av " + json.dumps(r))
+    log("av launches " + json.dumps(launches))
+    for name in AV_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the AV training path")
+    require(len(records) == steps, f"{len(records)} AV steps ran, {steps} asked")
+    for r in records:
+        require(all(math.isfinite(r[k]) for k in ("loss", "lidar_distance_loss",
+                                                   "lidar_background_loss")),
+                f"av step {r['step']}: a loss is not finite")
+        require(r["lidar_slots"] > 0 and not r["lidar_overflow"],
+                f"av step {r['step']}: lidar slots {r['lidar_slots']}, overflow {r['lidar_overflow']}")
+    require(records[-1]["loss"] < records[0]["loss"],
+            f"av loss did not fall: {records[0]['loss']} -> {records[-1]['loss']}")
+    if on_card:  # more steps on the same targets, timed whole and traced
+        def one_step():
+            step_fn(first_inputs[0])
+
+        step_ms = timer(one_step, 3)
+        log(json.dumps({"av_stage": "whole step", "ms": step_ms}))
+        device_profile(one_step, step_ms, log, "av_step")
+
+    # the lidar render's kernels (hit channel, no normals, D = 2) on every tile
+    probes = {name: Probe(r3d, name, on_card) for name in ("rasterize_eval3d_fwd",
+                                                          "rasterize_eval3d_bwd")}
+    step_fn(first_inputs[0])
+    for p in probes.values():
+        p.restore()
+    args = {name: p.first_args for name, p in probes.items()}
+    del probes
+    sync(dev)
+    records = check_eval3d_kernels(dev, args, launches, timer, log, "AV lidar render",
+                                   every_tile=True)
+    log("av eval3d kernels " + json.dumps(records))
+    return launches, records
 
 
 class Serving:
@@ -1391,7 +1795,25 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     for rec in surfel_records:
         rec["launches_training"] = train_launches[rec["name"]]
         rec["launches_2dgs"] = rec["launches"]
-    return serve, history + surfel_history, records + surfel_records
+    records = records + surfel_records
+
+    # 3DGUT: the same scene through a distorted pinhole, evaluated along rays.
+    gut_launches, gut_records = gut_phases(dev, raw, viewmats, K, (W, H), timer, log)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # The AV trainer: cameras and a spinning lidar on a street scene.
+    av_launches, av_records = av_phase(dev, timer, log)
+    for rec, av_rec in zip(gut_records, av_records):
+        rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
+        rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "plain_on")}
+        rec["launches_training"] = train_launches[rec["name"]]
+        rec["launches_2dgs"] = surfel_launches[rec["name"]]
+    records = records + gut_records
+    for rec in records:
+        rec["launches_3dgut"] = gut_launches[rec["name"]]
+        rec["launches_av"] = av_launches[rec["name"]]
+    return serve, history + surfel_history, records
 
 
 def device_profile(unit_fn, unit_ms: float, log, unit: str, n: int = 3) -> None:

@@ -53,6 +53,10 @@ SOURCE_FLAGS: Dict[str, List[str]] = {
     # pair shares composite.cuh: compiled alike
     "rasterize2d_fwd": [],
     "rasterize2d_bwd": [],
+    # rasterize_eval3d_fwd and rasterize_eval3d_bwd share csrc/ray3d.cuh:
+    # compiled alike, for the same reason
+    "rasterize_eval3d_fwd": [],
+    "rasterize_eval3d_bwd": [],
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -158,6 +162,15 @@ _SIGNATURES = {
     "rasterize2d_bwd": {
         "gs_rasterize2d_bwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
                                _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
+    },
+    "rasterize_eval3d_fwd": {
+        "gs_rasterize_eval3d_fwd": [_VOID, _LL, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
+                                    _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID, _VOID],
+    },
+    "rasterize_eval3d_bwd": {
+        "gs_rasterize_eval3d_bwd": [_VOID, _LL, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
+                                    _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID, _VOID,
+                                    _VOID, _VOID, _VOID],
     },
 }
 

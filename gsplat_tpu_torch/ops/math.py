@@ -1,7 +1,8 @@
 """Core Gaussian math: quaternions and covariance construction.
 
 Port of `gsplat_tpu/ops/math.py` (normalize :19, quat_to_rotmat :32,
-quat_scale_to_covar_preci :90).  Quaternions are wxyz and need not be
+rotmat_to_quat :53, quat_scale_to_covar_preci :90, quat_inverse :178,
+quat_rotate :183, quat_slerp :191).  Quaternions are wxyz and need not be
 normalized.  The 3x3 algebra is written elementwise, so no matrix product
 (and no TF32) touches it on the card.
 """
@@ -102,3 +103,63 @@ def quat_scale_to_covar_preci(
         if triu:
             precis = _to_triu(precis)
     return covars, precis
+
+
+def rotmat_to_quat(rotmats: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices [..., 3, 3] -> unit wxyz quaternions [..., 4], w >= 0.
+
+    Shepperd's construction: of four candidates, the one whose leading
+    entry is largest, chosen by select so that autograd sees every branch.
+    """
+    m = rotmats
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    cands = (
+        (1.0 + tr, m21 - m12, m02 - m20, m10 - m01),
+        (m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20),
+        (m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21),
+        (m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11),
+    )
+    q0, q1, q2, q3 = (torch.stack(c, dim=-1) for c in cands)
+    c1 = ((m00 >= m11) & (m00 >= m22))[..., None]
+    c2 = (m11 >= m22)[..., None]
+    q = torch.where((tr > 0.0)[..., None], q0, torch.where(c1, q1, torch.where(c2, q2, q3)))
+    q = normalize(q, dim=-1, eps=1e-12)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of a unit wxyz quaternion: its conjugate."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v [..., 3] by unit wxyz quaternions q [..., 4]."""
+    w = q[..., :1]
+    u = q[..., 1:]
+    uv = _cross(u, v)
+    return v + 2.0 * (w * uv + _cross(u, uv))
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Spherical linear interpolation of wxyz quaternions on the short arc;
+    a plain lerp where the two are nearly parallel."""
+    q0 = normalize(q0, dim=-1, eps=1e-12)
+    q1 = normalize(q1, dim=-1, eps=1e-12)
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+    theta = torch.arccos(torch.clamp(dot, 0.0, 1.0 - 1e-7))
+    sin_theta = torch.sin(theta)
+    near = dot > 1.0 - 1e-6
+    w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / sin_theta)
+    w1 = torch.where(near, t, torch.sin(t * theta) / sin_theta)
+    return normalize(w0 * q0 + w1 * q1, dim=-1, eps=1e-12)

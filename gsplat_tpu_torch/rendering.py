@@ -1,11 +1,15 @@
-"""Public rasterization API: the classic pinhole path and 2DGS surfels.
+"""Public rasterization API: the classic path, 3DGUT and eval3d (cameras
+with distortion and rolling shutter, the spinning lidar), and 2DGS surfels.
 
 Port of `gsplat_tpu/rendering.py` (render-mode predicates and
 _campos_from_viewmats :46-80, render_projected :83-127, rasterization
-:130-680 on the classic path, rasterization_2dgs :683-813): projection ->
-SH or broadcast features -> plan, emission, sort and composite.  Shapes are static: the
-intersection worklist has a fixed capacity (`isect_capacity`) with an
-overflow flag in `meta`.  PyTorch runs eagerly, so nothing is jitted.
+:130-680, rasterization_2dgs :683-813): projection (EWA, or the unscented
+transform with `with_ut`) -> SH or broadcast features -> plan, emission,
+sort and composite, either of the projected conics (classic) or along each
+pixel's world-space ray (`with_eval3d`, ops/rasterize_eval3d.py).  Shapes
+are static: the intersection worklist has a fixed capacity
+(`isect_capacity`) with an overflow flag in `meta`.  PyTorch runs eagerly,
+so nothing is jitted.
 
 Screen-space gradients for densification: pass `means2d_offset` (zeros,
 [..., C, N, 2], requires_grad) and read its `.grad` after `backward()`, as
@@ -24,9 +28,18 @@ import torch
 
 from .ops.projection import fully_fused_projection
 from .ops.projection2d import fully_fused_projection_2dgs
+from .ops.projection_ut import fully_fused_projection_ut
 from .ops.rasterize import TILE, _round_up, rasterize_to_pixels
 from .ops.rasterize2d import rasterize_to_pixels_2dgs
+from .ops.rasterize_eval3d import rasterize_to_pixels_eval3d
 from .ops.sh import spherical_harmonics
+from .sensors.cameras import generate_rays, make_camera
+from .sensors.lidars import angle_extent_to_element_grid, generate_lidar_rays
+from .sensors.params import (
+    FThetaCameraDistortionParameters,
+    RollingShutterType,
+    UnscentedTransformParameters,
+)
 from .utils.geometry import depth_to_normal
 
 _COLOR_MODES = {"RGB", "RGB-d", "RGB-Ed", "RGB+D", "RGB+ED"}
@@ -114,20 +127,43 @@ def rasterization(
     means2d_offset: Optional[torch.Tensor] = None,
     with_ut: bool = False,
     with_eval3d: bool = False,
+    ut_params: Optional[UnscentedTransformParameters] = None,
+    radial_coeffs: Optional[torch.Tensor] = None,  # [..., C, <=6]
+    tangential_coeffs: Optional[torch.Tensor] = None,  # [..., C, 2]
+    thin_prism_coeffs: Optional[torch.Tensor] = None,  # [..., C, 4]
+    ftheta_coeffs: Optional[FThetaCameraDistortionParameters] = None,
+    rolling_shutter: RollingShutterType = RollingShutterType.GLOBAL,
+    viewmats_rs: Optional[torch.Tensor] = None,  # [..., C, 4, 4]
+    rays: Optional[torch.Tensor] = None,  # [C, H, W, 6] (eval3d only)
+    return_normals: bool = False,  # eval3d only
+    lidar_coeffs=None,  # sensors.lidars.LidarModel (camera_model="lidar")
+    global_z_order: bool = True,
+    external_distortion=None,  # sensors.external windshield parameters (UT only)
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
     """Rasterize N 3D Gaussians to C image planes (optionally batched).
 
     Returns (render_colors [..., C, H, W, X], render_alphas
     [..., C, H, W, 1], meta).  X = D (+1 with a depth channel) for the
-    render modes RGB, D, ED, RGB+D and RGB+ED.  `isect_capacity` defaults
-    to 4 * total_cameras * N, rounded to 128; `meta["isect_overflow"]`
-    reports truncation.
+    render modes RGB, D, ED, RGB+D and RGB+ED, and with `with_eval3d` the
+    hit-distance modes d, Ed, RGB-d and RGB-Ed, whose last channel is the
+    distance along the ray.  `isect_capacity` defaults to
+    4 * total_cameras * N, rounded to 128; `meta["isect_overflow"]` reports
+    truncation.
+
+    `with_ut` projects through the unscented transform, which takes the
+    camera models' distortion (`radial_coeffs`, ...), `ftheta_coeffs`,
+    `rolling_shutter` with `viewmats_rs`, and `external_distortion`;
+    `with_eval3d` evaluates each gaussian along each pixel's ray (from the
+    camera model, or `rays`), with `return_normals` in
+    meta["render_normals"].  camera_model="lidar" renders the element grid
+    of `lidar_coeffs` (with_ut and with_eval3d both required).
     """
-    if with_ut or with_eval3d or camera_model == "lidar":
-        raise NotImplementedError(
-            "with_ut, with_eval3d and camera_model='lidar' belong to the "
-            "cameras/UT/eval3d slice, ROADMAP Queue 1 item 9"
-        )
+    if camera_model == "lidar":
+        if lidar_coeffs is None:
+            raise ValueError("camera_model='lidar' requires lidar_coeffs")
+        if not (with_ut and with_eval3d):
+            raise ValueError("lidar rendering requires with_ut=True and with_eval3d=True")
+        width, height = lidar_coeffs.n_columns, lidar_coeffs.n_rows  # the element grid
     if fast:
         raise NotImplementedError(
             "fast=True (the bf16-pair packed inference path) is ROADMAP "
@@ -135,16 +171,38 @@ def rasterization(
         )
     if absgrad and means2d_offset is None:
         raise ValueError("absgrad=True needs means2d_offset, the carrier of the gradient")
-    if render_mode in _HIT_DIST_MODES:
+    if render_mode in _HIT_DIST_MODES and not with_eval3d:
         raise ValueError(
             f"hit-distance render mode {render_mode!r} requires with_eval3d=True"
         )
-    if render_mode not in _COLOR_MODES | _DEPTH_MODES:
+    if render_mode not in _COLOR_MODES | _DEPTH_MODES | _HIT_DIST_MODES:
         raise ValueError(f"unknown render_mode: {render_mode!r}")
     if rasterize_mode not in ("classic", "antialiased"):
         raise ValueError(f"unknown rasterize_mode: {rasterize_mode!r}")
     if tile_size not in (8, 16, 32):
         raise ValueError(f"tile_size must be 8, 16 or 32, got {tile_size}")
+    if with_eval3d:
+        if rasterize_mode != "classic":
+            raise ValueError("rasterize_mode='antialiased' is not supported with with_eval3d")
+        if viewmats.dim() != 3:
+            raise ValueError("eval3d takes unbatched inputs ([N, 3] means, [C, 4, 4] viewmats)")
+        if means2d_offset is not None:
+            # the ray composite carries no screen-space gradient
+            raise ValueError("absgrad and means2d_offset have no carrier with with_eval3d")
+        if pack_payload or pack_grads or masks is not None:
+            raise ValueError("pack_payload, pack_grads and masks apply to the classic "
+                             "composite, not to with_eval3d")
+    if rays is not None and not with_eval3d:
+        raise ValueError("rays input is only supported with with_eval3d=True")
+    has_distortion = (
+        radial_coeffs is not None or tangential_coeffs is not None
+        or thin_prism_coeffs is not None or ftheta_coeffs is not None
+        or rolling_shutter != RollingShutterType.GLOBAL
+    )
+    if has_distortion and not with_ut:
+        raise ValueError("distortion coefficients / rolling shutter require with_ut=True")
+    if with_ut and rasterize_mode != "classic":
+        raise ValueError("rasterize_mode='antialiased' is not supported with with_ut")
 
     has_color = render_mode_has_color(render_mode)
     has_depth = render_mode_has_depth_channel(render_mode)
@@ -187,12 +245,25 @@ def rasterization(
     opacities = torch.where(ok_in, opacities, 0.0)  # 0 < 1/255 -> culled
 
     calc_compensations = rasterize_mode == "antialiased"
-    radii, means2d, depths, conics, compensations = fully_fused_projection(
-        means, covars, quats, scales, viewmats, Ks, width, height, eps2d=eps2d,
-        near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
-        calc_compensations=calc_compensations, camera_model=camera_model,
-        opacities=opacities,
-    )
+    if with_ut:
+        # sigma points through the nonlinear camera model
+        radii, means2d, depths, conics, compensations = fully_fused_projection_ut(
+            means, quats, scales, opacities, viewmats, Ks, width, height, eps2d=eps2d,
+            near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+            calc_compensations=calc_compensations, camera_model=camera_model,
+            ut_params=ut_params, radial_coeffs=radial_coeffs,
+            tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
+            ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
+            viewmats_rs=viewmats_rs, lidar_coeffs=lidar_coeffs, global_z_order=global_z_order,
+            external_distortion=external_distortion,
+        )
+    else:
+        radii, means2d, depths, conics, compensations = fully_fused_projection(
+            means, covars, quats, scales, viewmats, Ks, width, height, eps2d=eps2d,
+            near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+            calc_compensations=calc_compensations, camera_model=camera_model,
+            opacities=opacities,
+        )
 
     radii_f = radii.reshape(I, N, 2)
     means2d_f = means2d.reshape(I, N, 2)
@@ -244,6 +315,56 @@ def rasterization(
         isect_capacity = _round_up(isect_capacity, DEFAULT_CHUNK)
     masks_f = masks.reshape(I, th, tw) if masks is not None else None
 
+    if with_eval3d:
+        # the rays of the camera model or the lidar; the projection's radii
+        # tile (for a lidar, converted to its element grid)
+        if camera_model == "lidar":
+            if rays is None:
+                rays = generate_lidar_rays(lidar_coeffs, viewmats, viewmats_rs)
+            m2g, rdg = angle_extent_to_element_grid(lidar_coeffs, means2d, radii)
+            means2d_f, radii_f = m2g.reshape(I, N, 2), rdg.reshape(I, N, 2)
+        elif rays is None:
+            camera = make_camera(
+                camera_model, width, height,
+                focal_lengths=(None if camera_model == "ftheta"
+                               else torch.stack([Ks[..., 0, 0], Ks[..., 1, 1]], dim=-1)),
+                principal_points=Ks[..., :2, 2], radial_coeffs=radial_coeffs,
+                tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
+                ftheta_coeffs=ftheta_coeffs, shutter_type=rolling_shutter,
+                external_distortion=external_distortion,
+            )
+            rays = generate_rays(camera, width, height, viewmats, viewmats_rs)
+        render_colors, render_alphas, render_normals, aux = rasterize_to_pixels_eval3d(
+            means, quats, scales, feats_f, op, rays, width, height, radii_f, depths_f, means2d_f,
+            isect_capacity, backgrounds=bg_f, tile_size=tile_size,
+            use_hit_distance=render_mode in _HIT_DIST_MODES, return_normals=return_normals,
+        )
+        if render_mode_has_expected_depth(render_mode):
+            depth_ch = render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)
+            render_colors = torch.cat([render_colors[..., :-1], depth_ch], dim=-1)
+        render_colors, render_extra = _split_extra(render_colors, n_extra, has_depth)
+        meta = {
+            "radii": radii,
+            "means2d": means2d,
+            "depths": depths,
+            "conics": conics,
+            "opacities": op.reshape(C, N),
+            "rays": rays,
+            "render_normals": render_normals,
+            "width": width,
+            "height": height,
+            "tile_size": tile_size,
+            "n_batches": B,
+            "n_cameras": C,
+            "n_isects": aux["n_isects"],
+            "isect_overflow": aux["isect_overflow"],
+            "isect_capacity": isect_capacity,
+            "tiles_per_gauss": aux["tiles_per_gauss"],
+        }
+        if render_extra is not None:
+            meta["render_extra_signals"] = render_extra
+        return render_colors, render_alphas, meta
+
     m2_render, m2_abs = means2d_f, None
     if means2d_offset is not None:
         off = means2d_offset.reshape(I, N, 2)
@@ -266,14 +387,7 @@ def rasterization(
     render_colors = render_colors.reshape(out_shape + (D_out,))
     render_alphas = render_alphas.reshape(out_shape + (1,))
 
-    render_extra = None
-    if n_extra:
-        # layout is [colors | extras | (depth)]
-        d_col = D_out - n_extra - (1 if has_depth else 0)
-        render_extra = render_colors[..., d_col : d_col + n_extra]
-        render_colors = torch.cat(
-            [render_colors[..., :d_col], render_colors[..., d_col + n_extra :]], dim=-1
-        )
+    render_colors, render_extra = _split_extra(render_colors, n_extra, has_depth)
 
     meta = {
         "batch_ids": None,
@@ -302,6 +416,16 @@ def rasterization(
     if render_extra is not None:
         meta["render_extra_signals"] = render_extra
     return render_colors, render_alphas, meta
+
+
+def _split_extra(render_colors, n_extra: int, has_depth: bool):
+    """[colors | extras | (depth)] -> (colors with depth, extras or None)."""
+    if not n_extra:
+        return render_colors, None
+    d_col = render_colors.shape[-1] - n_extra - (1 if has_depth else 0)
+    extra = render_colors[..., d_col : d_col + n_extra]
+    return torch.cat([render_colors[..., :d_col], render_colors[..., d_col + n_extra :]],
+                     dim=-1), extra
 
 
 _MODES_2DGS = ("RGB", "D", "ED", "RGB+D", "RGB+ED")

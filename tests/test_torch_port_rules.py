@@ -20,7 +20,7 @@ from gsplat_tpu_torch.scene import (
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gsplat_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "simple_trainer_torch.py",
-    ROOT / "examples" / "simple_trainer_2dgs_torch.py"]
+    ROOT / "examples" / "simple_trainer_2dgs_torch.py", ROOT / "examples" / "av_trainer_torch.py"]
 
 
 def _imports(path):
@@ -91,19 +91,57 @@ def _small_call(**kw):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(with_ut=True), dict(with_eval3d=True), dict(camera_model="lidar"),
         dict(fast=True),
         # absgrad and means2d_offset run since the training slice; on the
-        # eval3d and packed inference paths they are still out of slice
-        dict(absgrad=True, means2d_offset=torch.zeros(1, 10, 2), with_eval3d=True),
+        # packed inference path they are still out of slice
         dict(means2d_offset=torch.zeros(1, 10, 2), fast=True),
         dict(pack_payload=True), dict(pack_grads=True),
+        # with_ut, with_eval3d and the lidar run since the eval3d slice; the
+        # packed paths stay out of slice behind the UT projection too
+        dict(with_ut=True, fast=True), dict(with_ut=True, pack_payload=True),
+        dict(with_ut=True, pack_grads=True), dict(with_ut=True, render_mode="D", fast=True),
     ],
-    ids=lambda o: next(iter(o)),
+    ids=lambda o: "+".join(o) if "with_ut" in o else next(iter(o)),
 )
 def test_out_of_slice_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         _small_call(**option)
+
+
+@pytest.mark.parametrize(
+    "option",
+    [
+        # the eval3d composite carries no screen-space gradient
+        dict(absgrad=True, means2d_offset=torch.zeros(1, 10, 2), with_ut=True, with_eval3d=True),
+        dict(means2d_offset=torch.zeros(1, 10, 2), with_ut=True, with_eval3d=True),
+        dict(with_eval3d=True, rasterize_mode="antialiased"),
+        dict(with_ut=True, rasterize_mode="antialiased"),
+        dict(radial_coeffs=torch.zeros(1, 6)),
+        dict(rolling_shutter="rolling"),
+        dict(rays=torch.zeros(1, 32, 32, 6)),
+        dict(render_mode="RGB-d"),
+        dict(camera_model="lidar"),
+        dict(with_eval3d=True, pack_payload=True),
+        dict(with_eval3d=True, masks=torch.ones(1, 2, 2, dtype=torch.bool)),
+        dict(with_eval3d=True, tile_size=8),
+    ],
+    ids=lambda o: "+".join(o),
+)
+def test_options_the_jax_package_refuses_raise_value_errors(option):
+    if option.get("rolling_shutter") == "rolling":
+        from gsplat_tpu_torch.sensors import RollingShutterType
+        option = dict(option, rolling_shutter=RollingShutterType.ROLLING_TOP_TO_BOTTOM)
+    with pytest.raises(ValueError):
+        _small_call(**option)
+
+
+def test_batched_eval3d_raises():
+    rng = np.random.default_rng(0)
+    means = torch.from_numpy(rng.uniform(-1, 1, (2, 10, 3)).astype(np.float32))
+    with pytest.raises(ValueError, match="unbatched"):
+        rasterization(means, torch.randn(2, 10, 4), torch.full((2, 10, 3), 0.1),
+                      torch.full((2, 10), 0.5), torch.rand(2, 10, 3), torch.eye(4).expand(2, 1, 4, 4),
+                      torch.eye(3).expand(2, 1, 3, 3), 32, 32, with_ut=True, with_eval3d=True)
 
 
 def test_in_slice_call_and_backward_raises():
@@ -320,3 +358,83 @@ def test_surfel_kernels_match_plain_versions_on_the_card(D):
     for row, row_p in zip(v_slot, v_slot_p):
         assert (row - row_p).abs().max().item() <= 1e-4 * row_p.abs().max().item()
     assert (v_slot[:, int(bounds[-1]):] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 2, 4, 32])
+@pytest.mark.parametrize("hit", [False, True], ids=["no_hit", "hit"])
+@pytest.mark.parametrize("normals", [False, True], ids=["no_normals", "normals"])
+def test_eval3d_kernels_match_plain_versions_on_the_card(D, hit, normals):
+    """K7a bit for bit and K7b within 1e-5 of each row's largest entry, with
+    K7a's contributing pairs as K7b's live pairs, on rays of a distorted
+    pinhole on the card; the hit channel and the normals each on and off,
+    so that every field layout is read (D = 2 with the hit channel alone is
+    the lidar's; D = 32 with both stages 51 rows: more than 48 KB of shared
+    memory in both kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import rasterize_eval3d_kernel as t3
+    from gsplat_tpu_torch.ops.projection_ut import fully_fused_projection_ut
+    from gsplat_tpu_torch.ops.rasterize_eval3d import iscl_rot_from_quat_scale
+    from gsplat_tpu_torch.sensors import generate_rays, make_camera
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    C, N, Wd, Hd = 2, 3000, 200, 150
+    means = (torch.rand(N, 3, generator=g, device=dev) - 0.5) * torch.tensor([6.0, 4.5, 4.0], device=dev)
+    means[:, 2] += 6.0
+    quats = torch.randn(N, 4, generator=g, device=dev)
+    scales = torch.rand(N, 3, generator=g, device=dev) * 0.15 + 0.02
+    op = torch.rand(N, generator=g, device=dev)
+    vm = torch.eye(4, device=dev).repeat(C, 1, 1)
+    vm[1, :3, 3] = torch.tensor([0.2, -0.1, 0.3], device=dev)
+    K = torch.tensor([[150.0, 0, Wd / 2], [0, 150.0, Hd / 2], [0, 0, 1]], device=dev).repeat(C, 1, 1)
+    rad = torch.tensor([[0.05, -0.01]], device=dev).repeat(C, 1)
+    radii, m2, depths, _, _ = fully_fused_projection_ut(means, quats, scales, op, vm, K, Wd, Hd,
+                                                        radial_coeffs=rad)
+    cam = make_camera("pinhole", Wd, Hd, K[:, [0, 1], [0, 1]], K[:, :2, 2], radial_coeffs=rad)
+    rays = generate_rays(cam, Wd, Hd, vm).contiguous()
+    rays[0, 70, 90, 3:] = 0.0  # one zero ray: its pixel starts at T = 0
+    E = C * N
+    tw, th = -(-Wd // 16), -(-Hd // 16)
+    cap = 1 << 19
+    plan = tr.make_emission_plan(m2, radii, 16, tw, th, cap)
+    assert not bool(plan.overflow) and int(plan.n_isects) > 0
+    cols = torch.rand(E, D, generator=g, device=dev)
+    rows = [means.repeat(C, 1), iscl_rot_from_quat_scale(quats, scales).reshape(N, 9).repeat(C, 1),
+            op.repeat(C)[:, None]]
+    if hit:
+        rows.append(scales.repeat(C, 1))
+    rows.append(cols)
+    if normals:
+        rows.append(torch.nn.functional.normalize(torch.randn(E, 3, generator=g, device=dev), dim=1))
+    table = torch.where((plan.cnt > 0)[:, None], torch.cat(rows, 1), 0.0).t().contiguous()
+    fields, bounds, _, _ = tr.expand_sort_align(table, depths.reshape(E), plan, cap, tw, th, C)
+    T = C * tw * th
+    geo = (C, tw, th, Wd, Hd, hit, normals)
+    kept = torch.empty(T, dtype=torch.int32, device=dev)
+    out, t_fin = t3.rasterize_eval3d_fwd(fields, bounds, rays, *geo, pair_counts=kept)
+    out_p, t_p = t3.rasterize_eval3d_fwd_plain(fields, bounds, rays, *geo)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_p) and torch.equal(t_fin, t_p)
+    assert float(t_fin[0, 70, 90]) == 0.0 and int(kept.sum()) > 0
+
+    v_pix = torch.randn(out.shape, generator=g, device=dev)
+    v_t = torch.randn(t_fin.shape, generator=g, device=dev)
+    live = torch.empty(T, dtype=torch.int32, device=dev)
+    bargs = (fields, bounds, rays, *geo, v_pix, v_t, out, t_fin)
+    v_slot, v_rays = t3.rasterize_eval3d_bwd(*bargs, live_counts=live)
+    v_slot_p, v_rays_p, n_live_p = t3.rasterize_eval3d_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(live, kept), "the backward's live pairs differ from the forward's"
+    assert int(live.sum()) == n_live_p
+    again = t3.rasterize_eval3d_bwd(*bargs)
+    assert torch.equal(v_slot, again[0]) and torch.equal(v_rays, again[1]), "two runs differ"
+    for row, row_p in zip(v_slot, v_slot_p):
+        assert (row - row_p).abs().max().item() <= 1e-5 * max(row_p.abs().max().item(), 1e-30)
+    for k in range(6):
+        got, want = v_rays[..., k], v_rays_p[..., k]
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert (v_slot[:, int(bounds[-1]):] == 0).all()
+    if hit:
+        assert bool((v_slot[16 + D - 1] == 0).all())  # the input hit channel's row
