@@ -7,7 +7,9 @@
 
 The npz holds means3d, colors (0..255), viewmats, Ks, width, height.  Runs on
 the CUDA card unless --device cpu.  Options are the fields of
-gsplat_tpu_torch.trainer.Config.
+gsplat_tpu_torch.trainer.Config; the render takes the bf16-pair packed sort
+payload and per-slot gradients unless --pack_payload false --pack_grads false
+(the exact float32 path).
 """
 
 import sys

@@ -136,18 +136,18 @@ _SIGNATURES = {
     "expand": {
         "gs_expand_rows": [_VOID, _VOID, _LL, _VOID, _LL, _FLOAT, _INT, _VOID, _VOID],
         "gs_expand_emission": [_VOID, _LL, _VOID, _LL, _INT, _VOID, _LL, _INT,
-                               _INT, _INT, _VOID, _VOID, _VOID],
+                               _INT, _INT, _INT, _INT, _VOID, _VOID, _VOID],
         "gs_expand_aabb": [_VOID, _VOID, _LL, _VOID, _VOID, _INT, _VOID, _LL, _INT, _INT,
                            _INT, _VOID, _VOID, _VOID, _VOID, _VOID],
     },
     "rasterize_fwd": {
         "gs_rasterize_fwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT,
-                             _INT, _INT, _VOID, _VOID, _VOID, _VOID],
+                             _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID],
     },
     "rasterize_bwd": {
         "gs_rasterize_bwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT,
-                             _INT, _INT, _VOID, _VOID, _VOID, _VOID, _VOID,
-                             _VOID, _VOID],
+                             _INT, _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID,
+                             _VOID, _VOID, _VOID],
     },
     "segsum": {
         "gs_segment_rowsum": [_VOID, _LL, _INT, _VOID, _LL, _VOID, _VOID],

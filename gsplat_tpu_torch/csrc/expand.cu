@@ -8,10 +8,16 @@
 // row, in f32 and in the same order as the JAX kernel (:465-512).
 //
 // K4 `expand_emission` replaces gather_pallas.py:_expand2_kernel (:584,
-// wrapper expand_emission2 :721), unpacked layout.  One thread per emission
-// slot s: it finds its row record by binary search in rr_cum_in, computes
-// the tile key (:652-665) and copies gaussian gid's 6+D render fields.
-// Dummy records and slots past n_slots carry the sentinel key and zeros.
+// wrapper expand_emission2 :721), in both its layouts.  One thread per
+// emission slot s: it finds its row record by binary search in rr_cum_in,
+// computes the tile key (:652-665) and copies gaussian gid's 6+D render
+// fields.  Dummy records and slots past n_slots carry the sentinel key and
+// zeros.  The packed layout (PACKED, :691-716) writes ceil((6+D)/2) bf16-pair
+// carriers instead (csrc/bf16pair.cuh): the mean made tile-local first,
+// x - tx*tile and y - ty*tile in float32, then the rows paired in order, so
+// the slot sort moves 5 rows for RGB instead of 9.  A slot without a record
+// writes zero bits; a dummy's fields are zero and its tile origin 0, so it
+// writes zero bits too.
 //
 // K8 `expand_emission_aabb` replaces gather_pallas.py:_expand_kernel (:120,
 // wrapper expand_emission :216), the AABB emission of the 2DGS path.  One
@@ -27,7 +33,8 @@
 // What bounds them on the H100: both move little data per thread and do
 // little arithmetic (a ~20-step binary search, ~40 flops for K3, one
 // F-float copy for K4), so they are bound by device-memory bytes: K3 by
-// its [16, E] gaussian table and [5, R] output, K4 by its [F, cap] output.
+// its [16, E] gaussian table and [5, R] output, K4 by its [F, cap] output
+// ([ceil(F/2), cap] packed: the roundings are a few operations per word).
 // The design keeps every write coalesced (thread i writes element i of each
 // output row) and lets neighbouring threads share the binary-search path
 // and the source gaussian, so those reads hit L1/L2.  The TPU's windowed
@@ -40,6 +47,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16pair.cuh"
 
 namespace {
 
@@ -132,28 +141,47 @@ __global__ void expand_rows_kernel(const float* __restrict__ gg_f,
   out[4 * row_cap + r] = gid;
 }
 
+template <bool PACKED>
 __global__ void expand_emission_kernel(const int* __restrict__ rr, long long R,
                                        const float* __restrict__ table_g, long long E,
                                        int F, const int* __restrict__ n_slots_p,
                                        long long cap, int tile_w, int tiles_per_im,
-                                       int sentinel, int* __restrict__ keys,
+                                       int sentinel, int tile, int* __restrict__ keys,
                                        float* __restrict__ fields) {
   const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= cap) return;
   int key = sentinel;
   long long gid = -1;
+  int tx = 0, ty = 0;
   if (s < (long long)*n_slots_p) {
     const long long r = upper_bound(rr + RR_IN * R, R, s);
     if (r < R) {
-      const int tx = rr[RR_X0 * R + r] + (int)(s - rr[RR_EX * R + r]);
-      const int k = rr[RR_IM * R + r] * tiles_per_im + rr[RR_TY * R + r] * tile_w + tx;
+      tx = rr[RR_X0 * R + r] + (int)(s - rr[RR_EX * R + r]);
+      ty = rr[RR_TY * R + r];
+      const int k = rr[RR_IM * R + r] * tiles_per_im + ty * tile_w + tx;
       key = min(k, sentinel);
       gid = rr[RR_GID * R + r];
     }
   }
   keys[s] = key;
-  for (int f = 0; f < F; ++f)
-    fields[f * cap + s] = gid >= 0 ? table_g[f * E + gid] : 0.0f;
+  if (PACKED) {
+    for (int c = 0; 2 * c < F; ++c) {
+      float carrier = 0.0f;  // zero bits
+      if (gid >= 0) {
+        float hi = table_g[(2 * c) * E + gid];
+        float lo = 2 * c + 1 < F ? table_g[(2 * c + 1) * E + gid] : 0.0f;
+        if (c == 0) {  // the mean in tile-local pixels
+          hi = __fsub_rn(hi, (float)(tx * tile));
+          lo = __fsub_rn(lo, (float)(ty * tile));
+        }
+        carrier = gs::pack_bf16_pair(hi, lo);
+      }
+      fields[c * cap + s] = carrier;
+    }
+  } else {
+    for (int f = 0; f < F; ++f)
+      fields[f * cap + s] = gid >= 0 ? table_g[f * E + gid] : 0.0f;
+  }
 }
 
 __global__ void expand_aabb_kernel(const int* __restrict__ cum_in,
@@ -212,15 +240,23 @@ int gs_expand_rows(const float* gg_f, const int* gg_i, long long E,
 }
 
 // rr [6, R] i32 (cum_ex, cum_in, x0, ty, im, gid), table_g [F, E] f32,
-// n_slots [1] i32 (device) -> keys [cap] i32, fields [F, cap] f32.
+// n_slots [1] i32 (device) -> keys [cap] i32 and fields [F, cap] f32, or
+// with `packed` the bf16-pair carriers [ceil(F/2), cap] with tile-local means
+// (tile: the tile size in pixels).
 int gs_expand_emission(const int* rr, long long R, const float* table_g,
                        long long E, int F, const int* n_slots, long long cap,
-                       int tile_w, int tiles_per_im, int sentinel, int* keys,
-                       float* fields, cudaStream_t stream) {
-  if (cap > 0)
-    expand_emission_kernel<<<blocks_for(cap), kThreads, 0, stream>>>(
-        rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel,
-        keys, fields);
+                       int tile_w, int tiles_per_im, int sentinel, int packed, int tile,
+                       int* keys, float* fields, cudaStream_t stream) {
+  if (cap > 0) {
+    if (packed)
+      expand_emission_kernel<true><<<blocks_for(cap), kThreads, 0, stream>>>(
+          rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel, tile,
+          keys, fields);
+    else
+      expand_emission_kernel<false><<<blocks_for(cap), kThreads, 0, stream>>>(
+          rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel, tile,
+          keys, fields);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -29,6 +29,19 @@
 // bf16 splits and moment basis exist for the TPU's matrix unit and ordered
 // grid and are not carried over.
 //
+// Packed modes (rasterize_pallas.py:_bwd_kernel packed=True :613-624,
+// :669-670, and pack_grads :690-709).  PACKED reads the packed payload that
+// the packed forward read (ceil((6+D)/2) bf16-pair carriers per slot, means
+// in tile-local pixels), unpacks it into the same staged rows and replays it
+// with tile-local pixel centres, so its decisions are the packed forward's;
+// dx = px - mx is translation invariant, so the means' gradient read in the
+// tile-local frame is the gradient of the caller's means.  `pack_grads`
+// writes the 6+D per-slot sums, after the same fixed-order reduction, as
+// ceil((6+D)/2) bf16-pair carriers of the rows paired in order
+// (csrc/bf16pair.cuh): half the output bytes and half the rows that the
+// scatter back to emission order moves.  Slots no CTA reaches keep the zero
+// bits the wrapper allocated.
+//
 // What bounds it on the H100: operations.  Every evaluated (pixel, slot)
 // pair costs the forward's ~21 f32 operations again; a live pair needs
 // 29 + 3D more for its gradient terms (38 at D = 3) and one add into each of
@@ -41,6 +54,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16pair.cuh"
 #include "composite.cuh"
 
 namespace {
@@ -55,15 +69,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;  // lane 0 holds the sum
 }
 
-template <int D>
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(kMaxThreads)
 rasterize_bwd_kernel(const float* __restrict__ fields, long long P,
                      const int* __restrict__ bounds, int tile, int tiles_w,
-                     int tiles_per_image, int width, int height,
+                     int tiles_per_image, int width, int height, bool pack_grads,
                      const float* __restrict__ v_pix, const float* __restrict__ v_t,
                      const float* __restrict__ pix_out, const float* __restrict__ t_final,
                      float* __restrict__ v_slot, int* __restrict__ live_counts) {
   constexpr int F = 6 + D;
+  constexpr int R = (F + 1) / 2;  // carriers per slot, of the payload and of the gradients
   extern __shared__ float smem[];
   const int B = blockDim.x;
   const int n_warps = B >> 5;
@@ -82,8 +97,9 @@ rasterize_bwd_kernel(const float* __restrict__ fields, long long P,
   const int tx = tl - ty * tiles_w;
   const int x = tx * tile + tr % tile;
   const int y = ty * tile + tr / tile;
-  const float px = (float)x + 0.5f;
-  const float py = (float)y + 0.5f;
+  // packed: tile-local centres, as the packed means are tile-local
+  const float px = (float)(PACKED ? tr % tile : x) + 0.5f;
+  const float py = (float)(PACKED ? tr / tile : y) + 0.5f;
   const bool inside = x < width && y < height;
 
   bool done = !inside;
@@ -113,10 +129,21 @@ rasterize_bwd_kernel(const float* __restrict__ fields, long long P,
     if (__syncthreads_count(done) == B) break;
     const int base = start + batch * kBatch;
     const int n = min(kBatch, end - base);
-    for (int o = tr; o < F * kBatch; o += B) {
-      const int f = o / kBatch;
-      const int j = o - f * kBatch;
-      if (j < n) stage[o] = fields[f * P + base + j];
+    if (PACKED) {
+      for (int o = tr; o < R * kBatch; o += B) {
+        const int c = o / kBatch;
+        const int j = o - c * kBatch;
+        if (j >= n) continue;
+        const float carrier = fields[c * P + base + j];
+        stage[(2 * c) * kBatch + j] = gs::bf16_hi(carrier);
+        if (2 * c + 1 < F) stage[(2 * c + 1) * kBatch + j] = gs::bf16_lo(carrier);
+      }
+    } else {
+      for (int o = tr; o < F * kBatch; o += B) {
+        const int f = o / kBatch;
+        const int j = o - f * kBatch;
+        if (j < n) stage[o] = fields[f * P + base + j];
+      }
     }
     __syncthreads();
 
@@ -182,15 +209,27 @@ rasterize_bwd_kernel(const float* __restrict__ fields, long long P,
     __syncthreads();
 
     // the warps' partials, added in warp order, one output element a thread
-    for (int o = tr; o < F * kBatch; o += B) {
-      const int f = o / kBatch;
-      const int j = o - f * kBatch;
-      if (j >= n) continue;
+    auto slot_sum = [&](int f, int j) {
       float sum = 0.0f;
       for (int wi = 0; wi < n_warps; ++wi) {
         if ((live_bits[wi] >> j) & 1u) sum += partial[((size_t)wi * F + f) * kBatch + j];
       }
-      v_slot[f * P + base + j] = sum;
+      return sum;
+    };
+    if (pack_grads) {
+      for (int o = tr; o < R * kBatch; o += B) {
+        const int c = o / kBatch;
+        const int j = o - c * kBatch;
+        if (j >= n) continue;
+        const float lo = 2 * c + 1 < F ? slot_sum(2 * c + 1, j) : 0.0f;
+        v_slot[c * P + base + j] = gs::pack_bf16_pair(slot_sum(2 * c, j), lo);
+      }
+    } else {
+      for (int o = tr; o < F * kBatch; o += B) {
+        const int f = o / kBatch;
+        const int j = o - f * kBatch;
+        if (j < n) v_slot[f * P + base + j] = slot_sum(f, j);
+      }
     }
   }
 
@@ -206,24 +245,24 @@ rasterize_bwd_kernel(const float* __restrict__ fields, long long P,
   }
 }
 
-template <int D>
+template <int D, bool PACKED>
 int launch(const float* fields, long long P, const int* bounds, int tile,
            int tiles_w, int tiles_per_image, int width, int height, int n_tiles,
-           const float* v_pix, const float* v_t, const float* pix_out,
+           bool pack_grads, const float* v_pix, const float* v_t, const float* pix_out,
            const float* t_final, float* v_slot, int* live_counts, cudaStream_t stream) {
   constexpr int F = 6 + D;
   const int threads = tile * tile;
   const int n_warps = threads / 32;
   const size_t smem = sizeof(float) * F * kBatch * (1 + n_warps) + sizeof(unsigned) * n_warps;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(rasterize_bwd_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(rasterize_bwd_kernel<D, PACKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  rasterize_bwd_kernel<D><<<n_tiles, threads, smem, stream>>>(
-      fields, P, bounds, tile, tiles_w, tiles_per_image, width, height, v_pix, v_t,
-      pix_out, t_final, v_slot, live_counts);
+  rasterize_bwd_kernel<D, PACKED><<<n_tiles, threads, smem, stream>>>(
+      fields, P, bounds, tile, tiles_w, tiles_per_image, width, height, pack_grads, v_pix,
+      v_t, pix_out, t_final, v_slot, live_counts);
   return (int)cudaGetLastError();
 }
 
@@ -235,26 +274,32 @@ const char* gs_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// fields [6+D, P] f32 sorted slot rows, bounds [n_tiles+1] i32 tile spans,
-// v_pix and pix_out [I, H, W, D] f32, v_t and t_final [I, H, W] f32 ->
-// v_slot [6+D, P] f32 (zeroed by the caller; slots no CTA reaches stay zero)
-// and, unless null, live_counts [n_tiles] i32: the live (pixel, slot) pairs of
-// each tile.  D in [1, 32].
+// fields [6+D, P] f32 sorted slot rows (packed: [ceil((6+D)/2), P] bf16-pair
+// carriers with tile-local means), bounds [n_tiles+1] i32 tile spans, v_pix
+// and pix_out [I, H, W, D] f32, v_t and t_final [I, H, W] f32 -> v_slot
+// [6+D, P] f32, or with pack_grads [ceil((6+D)/2), P] bf16-pair carriers
+// (zeroed by the caller; slots no CTA reaches stay zero) and, unless null,
+// live_counts [n_tiles] i32: the live (pixel, slot) pairs of each tile.
+// D in [1, 32].
 int gs_rasterize_bwd(const float* fields, long long P, const int* bounds,
                      int D, int tile, int tiles_w, int tiles_per_image,
-                     int width, int height, int n_tiles, const float* v_pix,
-                     const float* v_t, const float* pix_out, const float* t_final,
-                     float* v_slot, int* live_counts, cudaStream_t stream) {
+                     int width, int height, int n_tiles, int packed, int pack_grads,
+                     const float* v_pix, const float* v_t, const float* pix_out,
+                     const float* t_final, float* v_slot, int* live_counts,
+                     cudaStream_t stream) {
   if (n_tiles == 0) return (int)cudaGetLastError();
   switch (D) {
+#define GS_LAUNCH(d, p) \
+  launch<d, p>(fields, P, bounds, tile, tiles_w, tiles_per_image, width, height, n_tiles, pack_grads != 0, v_pix, v_t, pix_out, t_final, v_slot, live_counts, stream)
 #define GS_CASE(d) \
   case d:          \
-    return launch<d>(fields, P, bounds, tile, tiles_w, tiles_per_image, width, height, n_tiles, v_pix, v_t, pix_out, t_final, v_slot, live_counts, stream);
+    return packed ? GS_LAUNCH(d, true) : GS_LAUNCH(d, false);
     GS_CASE(1) GS_CASE(2) GS_CASE(3) GS_CASE(4) GS_CASE(5) GS_CASE(6) GS_CASE(7) GS_CASE(8)
     GS_CASE(9) GS_CASE(10) GS_CASE(11) GS_CASE(12) GS_CASE(13) GS_CASE(14) GS_CASE(15) GS_CASE(16)
     GS_CASE(17) GS_CASE(18) GS_CASE(19) GS_CASE(20) GS_CASE(21) GS_CASE(22) GS_CASE(23) GS_CASE(24)
     GS_CASE(25) GS_CASE(26) GS_CASE(27) GS_CASE(28) GS_CASE(29) GS_CASE(30) GS_CASE(31) GS_CASE(32)
 #undef GS_CASE
+#undef GS_LAUNCH
     default:
       return (int)cudaErrorInvalidValue;
   }

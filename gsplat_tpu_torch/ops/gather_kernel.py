@@ -8,9 +8,11 @@ wrapper counts its launches in `<wrapper>.launches`.
 
 K3 `expand_rows` replaces gsplat_tpu/ops/gather_pallas.py:_expand_rows_kernel
 (:396, wrapper :526); K4 `expand_emission` replaces
-gather_pallas.py:_expand2_kernel (:584, wrapper expand_emission2 :721),
-unpacked layout; K8 `expand_emission_aabb` replaces _expand_kernel (:120,
-wrapper expand_emission :216; K4 took that name here first); K9
+gather_pallas.py:_expand2_kernel (:584, wrapper expand_emission2 :721), in
+its float32 layout and (`packed=True`, :691-716) its bf16-pair layout with
+tile-local means, whose launches count in `expand_emission.launches_packed`;
+K8 `expand_emission_aabb` replaces _expand_kernel (:120, wrapper
+expand_emission :216; K4 took that name here first); K9
 `align_rows` replaces _align_kernel (:274, wrapper :316).  The TPU kernels'
 windowed one-hot selection and hi/lo integer transport are TPU workarounds
 and are not ported: the CUDA kernels find their source row by binary search
@@ -25,6 +27,7 @@ import torch
 
 from .. import _build
 from .._device import check_kernel_device
+from .bf16pair import pack_rows
 
 # K3 table columns: float gg_f [10, E] and int gg_i [6, E].
 GF_MX, GF_MY, GF_A, GF_B, GF_C, GF_SIG, GF_YEXT, GF_XEXT, GF_DET, GF_AABB = range(10)
@@ -161,9 +164,10 @@ expand_rows.launches = 0
 
 def expand_emission_plain(
     rr: torch.Tensor, table_g: torch.Tensor, n_slots: torch.Tensor, cap: int,
-    tile_w: int, tiles_per_im: int, sentinel: int,
+    tile_w: int, tiles_per_im: int, sentinel: int, packed: bool = False, tile_size: int = 16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K4: (keys int32 [cap], fields f32 [F, cap])."""
+    """Plain version of K4: (keys int32 [cap], fields f32 [F, cap], or the
+    bf16-pair carriers [ceil(F/2), cap] with tile-local means when packed)."""
     R = rr.shape[1]
     dev = rr.device
     s = torch.arange(cap, dtype=torch.int32, device=dev)
@@ -176,6 +180,9 @@ def expand_emission_plain(
     key = torch.where(found, torch.clamp(key, max=sentinel), sentinel).to(torch.int32)
     fields = table_g[:, rec[RR_GID].long()]
     fields = torch.where(found[None], fields, 0.0)
+    if packed:
+        origin = torch.where(found[None], torch.stack([tx, rec[RR_TY]]) * tile_size, 0)
+        fields = pack_rows(torch.cat([fields[:2] - origin.to(torch.float32), fields[2:]]))
     return key, fields
 
 
@@ -187,6 +194,8 @@ def expand_emission(
     tile_w: int,
     tiles_per_im: int,
     sentinel: int,
+    packed: bool = False,
+    tile_size: int = 16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expand row records to emission slots in gaussian-major order.
 
@@ -194,28 +203,37 @@ def expand_emission(
     key is im*tiles_per_im + ty*tile_w + x0 + (s - rr_cum_ex[r]) and it
     carries gaussian gid's fields.  Slots past n_slots get the sentinel key
     and zero fields.  Returns (keys int32 [cap], fields f32 [F, cap]).
+    With `packed` the fields are the bf16-pair payload (ops/bf16pair.py):
+    the mean made tile-local (x - tx*tile_size, y - ty*tile_size), then the
+    F rows paired in order, [ceil(F/2), cap]; empty slots are zero bits.
     """
     _check_table("rr", rr, 6, torch.int32)
     if table_g.dim() != 2 or table_g.dtype != torch.float32 or not table_g.is_contiguous():
         raise ValueError("table_g must be a contiguous float32 [F, E] tensor")
     _check_count("n_slots", n_slots)
     if not check_kernel_device("expand_emission", rr, table_g, n_slots):
-        return expand_emission_plain(rr, table_g, n_slots, cap, tile_w, tiles_per_im, sentinel)
+        return expand_emission_plain(rr, table_g, n_slots, cap, tile_w, tiles_per_im, sentinel,
+                                     packed, tile_size)
     lib = _build.load("expand")
     F = table_g.shape[0]
     keys = torch.empty((cap,), dtype=torch.int32, device=rr.device)
-    fields = torch.empty((F, cap), dtype=torch.float32, device=rr.device)
+    rows = -(-F // 2) if packed else F
+    fields = torch.empty((rows, cap), dtype=torch.float32, device=rr.device)
     code = lib.gs_expand_emission(
         rr.data_ptr(), rr.shape[1], table_g.data_ptr(), table_g.shape[1], F,
-        n_slots.data_ptr(), cap, tile_w, tiles_per_im, sentinel,
+        n_slots.data_ptr(), cap, tile_w, tiles_per_im, sentinel, int(packed), tile_size,
         keys.data_ptr(), fields.data_ptr(), _build.stream_of(keys),
     )
     _build.check(lib, code, "expand_emission")
-    expand_emission.launches += 1
+    if packed:
+        expand_emission.launches_packed += 1
+    else:
+        expand_emission.launches += 1
     return keys, fields
 
 
 expand_emission.launches = 0
+expand_emission.launches_packed = 0
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,21 @@ The backward (`_RasterizeCore.backward`) runs:
 
 Every step is a permutation or a fixed-order sum, so two runs give the same
 bits.
+
+Packed payloads (rasterize.py:_core_fwd/_core_bwd with pack_payload,
+pack_grads; :114-132, :447-451, :556-566): with `pack_payload` the emission
+writes the bf16-pair payload with tile-local means (ops/bf16pair.py), the
+slot sort moves its packed_rows(D) rows instead of 6+D, the composite
+unpacks them, and the backward replays the same quantized fields, so the
+gradients are the exact gradients of the quantized forward, handed back as
+those of the unquantized inputs.  With `pack_grads` K2 writes its per-slot
+gradients as bf16-pair carriers; the scatter to emission order moves those,
+and they are unpacked before the per-gaussian sums.  Both default to off:
+the op stays exact unless asked.
+
+`rasterize_to_pixels_fast` (rasterize.py:787-902) is the inference path:
+the same compaction and plan, the packed emission and composite, no
+autograd and no slot bounds.
 """
 
 from __future__ import annotations
@@ -46,6 +61,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .bf16pair import unpack_rows
 from .gather_kernel import align_rows, expand_emission, expand_emission_aabb, expand_rows
 from .projection import ALPHA_THRESHOLD
 from .rasterize_kernel import rasterize_bwd, rasterize_fwd
@@ -259,17 +275,25 @@ def sort_slots(keys: torch.Tensor, fields: torch.Tensor, n_tiles: int):
     return fields_s, bounds, order
 
 
-def unsort_slots(v_slot: torch.Tensor, order: torch.Tensor, absgrad: bool) -> torch.Tensor:
+def unsort_slots(v_slot: torch.Tensor, order: torch.Tensor, absgrad: bool,
+                 n_rows: int) -> torch.Tensor:
     """Per-slot gradients from sorted to emission order, where a gaussian's
     slots are contiguous: `order` is a permutation of all slots, so this is
-    one scatter.  With `absgrad` two more rows hold |v_x| and |v_y|
-    (rasterize.py:567-568)."""
-    F = v_slot.shape[0]
-    rows = F + (2 if absgrad else 0)
-    v_emit = torch.empty((rows, v_slot.shape[1]), dtype=v_slot.dtype, device=v_slot.device)
-    v_emit[:F].index_copy_(1, order, v_slot)
+    one scatter.  `v_slot` holds the `n_rows` gradient rows, or (pack_grads)
+    their bf16-pair carriers, which the scatter moves and which are unpacked
+    after it (rasterize.py:556-566).  With `absgrad` two more rows hold |v_x|
+    and |v_y| (rasterize.py:567-568)."""
+    P = v_slot.shape[1]
+    rows = n_rows + (2 if absgrad else 0)
+    v_emit = torch.empty((rows, P), dtype=v_slot.dtype, device=v_slot.device)
+    if v_slot.shape[0] == n_rows:
+        v_emit[:n_rows].index_copy_(1, order, v_slot)
+    else:
+        carriers = torch.empty_like(v_slot).index_copy_(1, order, v_slot)
+        unpack_rows(carriers, n_rows, out=v_emit[:n_rows])
+        del carriers
     if absgrad:
-        torch.abs(v_emit[0:2], out=v_emit[F:])
+        torch.abs(v_emit[0:2], out=v_emit[n_rows:])
     return v_emit
 
 
@@ -280,6 +304,30 @@ def unpermute_gaussians(vg: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return v_gauss.index_copy_(0, perm, vg.t())
 
 
+def composite_slots(table_g, rr, n_slots, cap_total: int, tile_size: int, tile_width: int,
+                    tile_height: int, n_images: int, width: int, height: int, packed: bool,
+                    keep_order: bool):
+    """Emission (K4), the slot sort and the composite (K1), in the float32 or
+    the packed layout: the forward that rasterize_to_pixels and
+    rasterize_to_pixels_fast share.  Returns (sorted slot rows, bounds int32
+    [T+1], order int64 [cap_total] or None unless `keep_order`, colors
+    [I, H, W, D], T_final [I, H, W])."""
+    T = n_images * tile_width * tile_height
+    keys, fields = expand_emission(
+        rr, table_g, n_slots, cap_total, tile_width, tile_width * tile_height, T,
+        packed=packed, tile_size=tile_size,
+    )
+    fields_s, bounds, order = sort_slots(keys, fields, T)
+    del keys, fields
+    if not keep_order:  # no backward will run: the composite needs no permutation
+        order = None
+    pix_out, t_final = rasterize_fwd(
+        fields_s, bounds, n_images, tile_size, tile_width, tile_height, width, height,
+        packed=packed, n_channels=table_g.shape[0] - 6,
+    )
+    return fields_s, bounds, order, pix_out, t_final
+
+
 class _RasterizeCore(torch.autograd.Function):
     """Emission, sort and composite, with the backward through K2 and K5.
 
@@ -288,44 +336,65 @@ class _RasterizeCore(torch.autograd.Function):
     field table.  `means2d_abs` is the absgrad carrier: its value is unused
     and, under `absgrad`, its gradient is the per-slot sum of |v_x|, |v_y|.
     `slot_bounds` is None when no gradient is asked for (rasterize_to_pixels
-    decides); the forward then keeps nothing for a backward.
+    decides); the forward then keeps nothing for a backward.  The saved slot
+    table is the one the forward read: the packed payload under
+    `pack_payload`.
     """
 
     @staticmethod
     def forward(ctx, means2d, conics, colors, opacities, means2d_abs, table_g, rr, n_slots,
                 perm, slot_bounds, absgrad, cap_total, tile_size, tile_width, tile_height,
-                n_images, width, height):
-        T = n_images * tile_width * tile_height
-        keys, fields = expand_emission(
-            rr, table_g, n_slots, cap_total, tile_width, tile_width * tile_height, T
-        )
-        fields_s, bounds, order = sort_slots(keys, fields, T)
-        del keys, fields
-        if slot_bounds is None:  # no backward will run: the composite needs no permutation
-            del order
-        pix_out, t_final = rasterize_fwd(
-            fields_s, bounds, n_images, tile_size, tile_width, tile_height, width, height
+                n_images, width, height, pack_payload, pack_grads):
+        fields_s, bounds, order, pix_out, t_final = composite_slots(
+            table_g, rr, n_slots, cap_total, tile_size, tile_width, tile_height, n_images,
+            width, height, pack_payload, keep_order=slot_bounds is not None,
         )
         if slot_bounds is not None:
             ctx.save_for_backward(fields_s, bounds, order, perm, slot_bounds, pix_out, t_final)
         ctx.geometry = (n_images, tile_size, tile_width, tile_height, width, height)
         ctx.absgrad = absgrad
+        ctx.modes = dict(packed=pack_payload, pack_grads=pack_grads,
+                         n_channels=table_g.shape[0] - 6)
         return pix_out, t_final
 
     @staticmethod
     def backward(ctx, v_pix, v_t):
         fields_s, bounds, order, perm, slot_bounds, pix_out, t_final = ctx.saved_tensors
-        D = fields_s.shape[0] - 6
+        D = ctx.modes["n_channels"]
         v_slot = rasterize_bwd(
             fields_s, bounds, *ctx.geometry, v_pix.contiguous(), v_t.contiguous(),
-            pix_out, t_final,
+            pix_out, t_final, **ctx.modes,
         )
-        v_emit = unsort_slots(v_slot, order, ctx.absgrad)
+        v_emit = unsort_slots(v_slot, order, ctx.absgrad, 6 + D)
+        del v_slot
         vg = segment_rowsum(v_emit, slot_bounds)  # [rows, E], compaction order
         v_gauss = unpermute_gaussians(vg, perm)
         v_abs = v_gauss[:, 6 + D :] if ctx.absgrad else None
         return (v_gauss[:, 0:2], v_gauss[:, 2:5], v_gauss[:, 6 : 6 + D], v_gauss[:, 5], v_abs,
-                *([None] * 13))
+                *([None] * 15))
+
+
+def _compact_and_plan(means2d, conics, colors, opacities, radii, depths, image_width: int,
+                      image_height: int, isect_capacity: int, tile_size: int,
+                      row_capacity: Optional[int], with_slot_bounds: bool):
+    """The compaction sort and the tight plan of rasterize_to_pixels and
+    rasterize_to_pixels_fast.  Returns (compacted gaussians, plan, their
+    field table, cap_total, tile columns, tile rows)."""
+    if tile_size not in (8, 16, 32):
+        raise ValueError(f"tile_size must be 8, 16 or 32, got {tile_size}")
+    I = means2d.shape[0]
+    th = -(-image_height // tile_size)
+    tw = -(-image_width // tile_size)
+    cap_total = _round_up(isect_capacity, CH)
+    if row_capacity is None:
+        row_capacity = isect_capacity // 2
+    row_cap = _round_up(max(row_capacity, 1), CH)
+    comp = compact_by_depth(means2d, conics, colors, opacities, radii, depths)
+    plan = make_tight_plan(
+        comp.means2d, comp.radii, comp.conics, comp.opacities, comp.image_ids,
+        comp.n_live, I, tile_size, tw, th, cap_total, row_cap, with_slot_bounds=with_slot_bounds,
+    )
+    return comp, plan, field_table(comp, plan.dummy), cap_total, tw, th
 
 
 def rasterize_to_pixels(
@@ -358,38 +427,32 @@ def rasterize_to_pixels(
     With `absgrad`, `means2d_abs` ([I, N, 2], value unused) receives as its
     gradient the sum over a gaussian's slots of |d loss / d means2d| per tile
     (AbsGS), as the JAX package's carrier of the same name does.
+
+    `pack_payload` sorts and composites the bf16-pair payload (about 2^-9
+    per field: the image of rasterize_to_pixels_fast, and the exact
+    gradients of that quantized forward); `pack_grads` carries the per-slot
+    gradients as bf16 pairs (about 2^-9 per slot) and keeps the forward
+    exact.  None means off, as in the JAX package without its environment
+    switches (the port reads no environment).
     """
-    if pack_payload or pack_grads:
-        raise NotImplementedError(
-            "packed sort payloads / gradients are ROADMAP Queue 1 item 5"
-        )
-    if tile_size not in (8, 16, 32):
-        raise ValueError(f"tile_size must be 8, 16 or 32, got {tile_size}")
     I, N = means2d.shape[0], means2d.shape[1]
     E = I * N
     D = colors.shape[-1]
-    th = -(-image_height // tile_size)
-    tw = -(-image_width // tile_size)
-    cap_total = _round_up(isect_capacity, CH)
-    if row_capacity is None:
-        row_capacity = isect_capacity // 2
-    row_cap = _round_up(max(row_capacity, 1), CH)
-
-    comp = compact_by_depth(means2d, conics, colors, opacities, radii, depths)
     needs_grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (means2d, conics, colors, opacities)
     )
-    plan = make_tight_plan(
-        comp.means2d, comp.radii, comp.conics, comp.opacities, comp.image_ids,
-        comp.n_live, I, tile_size, tw, th, cap_total, row_cap, with_slot_bounds=needs_grad,
+    comp, plan, table, cap_total, tw, th = _compact_and_plan(
+        means2d, conics, colors, opacities, radii, depths, image_width, image_height,
+        isect_capacity, tile_size, row_capacity, with_slot_bounds=needs_grad,
     )
     if absgrad and means2d_abs is None:
         raise ValueError("absgrad=True needs the means2d_abs carrier")
     color_img, t_img = _RasterizeCore.apply(
         means2d.reshape(E, 2), conics.reshape(E, 3), colors.reshape(E, D),
         opacities.reshape(E), means2d_abs.reshape(E, 2) if absgrad else None,
-        field_table(comp, plan.dummy), plan.rr, plan.n_slots, comp.perm, plan.slot_bounds,
+        table, plan.rr, plan.n_slots, comp.perm, plan.slot_bounds,
         absgrad, cap_total, tile_size, tw, th, I, image_width, image_height,
+        bool(pack_payload), bool(pack_grads),
     )
     t_img = t_img[..., None]
     render = color_img
@@ -425,6 +488,43 @@ def rasterize_to_pixels(
         "tiles_per_gauss": aabb_cnt.reshape(I, N).to(torch.int32),
     }
     return render, render_alphas, aux
+
+
+@torch.no_grad()
+def rasterize_to_pixels_fast(
+    means2d: torch.Tensor,  # [I, N, 2]
+    conics: torch.Tensor,  # [I, N, 3]
+    colors: torch.Tensor,  # [I, N, D]
+    opacities: torch.Tensor,  # [I, N]
+    image_width: int,
+    image_height: int,
+    radii: torch.Tensor,  # [I, N, 2] int32 (0 = culled)
+    depths: torch.Tensor,  # [I, N]
+    isect_capacity: int,
+    backgrounds: Optional[torch.Tensor] = None,  # [I, D]
+    tile_size: int = TILE,
+    row_capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+    """The inference fast path (rasterize.py:787-902): the compaction and
+    plan of rasterize_to_pixels, then the packed emission, a slot sort of
+    packed_rows(D) rows and the packed composite, without autograd.  About
+    2^-9 per field (the bf16 pairs), well under 1% of a pixel.  Returns
+    (render_colors [I, H, W, D], render_alphas [I, H, W, 1],
+    {n_isects, isect_overflow})."""
+    I = means2d.shape[0]
+    _, plan, table, cap_total, tw, th = _compact_and_plan(
+        means2d, conics, colors, opacities, radii, depths, image_width, image_height,
+        isect_capacity, tile_size, row_capacity, with_slot_bounds=False,
+    )
+    *_, color_img, t_img = composite_slots(
+        table, plan.rr, plan.n_slots, cap_total, tile_size, tw, th, I, image_width,
+        image_height, packed=True, keep_order=False,
+    )
+    t_img = t_img[..., None]
+    render = color_img
+    if backgrounds is not None:
+        render = render + t_img * backgrounds[:, None, None, :]
+    return render, 1.0 - t_img, {"n_isects": plan.n_isects, "isect_overflow": plan.overflow}
 
 
 # ---------------------------------------------------------------------------

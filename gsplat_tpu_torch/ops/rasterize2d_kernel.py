@@ -34,7 +34,7 @@ import torch
 from .. import _build
 from .._device import check_kernel_device
 from .projection import ALPHA_THRESHOLD, MAX_ALPHA, TRANSMITTANCE_THRESHOLD
-from .rasterize_kernel import MAX_CHANNELS, _counts_ptr, _tile_batches
+from .rasterize_kernel import MAX_CHANNELS, _counts_ptr, tile_sets
 
 TILE_2D = 16  # the 2DGS composite's only tile size
 PLAIN_BUDGET = 1 << 22  # (tile, pixel, slot) elements per batch of the plain versions
@@ -149,9 +149,8 @@ def _batches(bounds, n_tiles, tiles, budget):
     `tiles` (all when None) whose padded work fits `budget` elements."""
     starts = bounds[:-1].long()
     counts = (bounds[1:] - bounds[:-1]).long()
-    ids = torch.arange(n_tiles, device=bounds.device) if tiles is None else tiles.long()
-    for i0, i1, L in _tile_batches(counts[ids], TILE_2D * TILE_2D, budget):
-        yield starts, counts, ids[i0:i1], L
+    for ids, L in tile_sets(bounds, n_tiles, TILE_2D * TILE_2D, tiles, budget):
+        yield starts, counts, ids, L
 
 
 def rasterize2d_fwd_plain(

@@ -14,6 +14,15 @@ Pallas kernel can resume such a pixel in a later 256-slot chunk
 (rasterize_pallas.py:409-431); that gap of the reference is not copied.
 The backward replays the forward's decisions: the two CUDA kernels share
 `csrc/composite.cuh` and the two plain versions share `_composite_batch`.
+
+Packed modes (rasterize_pallas.py `packed=True`, :399-407, :613-624, and
+`pack_grads`, :690-709): with `packed` the slot stream is the bf16-pair
+payload of the packed emission (ops/bf16pair.py: packed_rows(D) carriers,
+means in tile-local pixels), which both kernels unpack and composite with
+tile-local pixel centres; D then comes from `n_channels`, since the row
+count does not give it.  With `pack_grads` the backward writes its 6+D
+per-slot sums as grad_pack_rows(D) carriers.  Launches in a packed mode
+count in `<wrapper>.launches_packed`.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from .. import _build
 from .._device import check_kernel_device
+from .bf16pair import grad_pack_rows, pack_rows, packed_rows, unpack_payload
 from .projection import ALPHA_THRESHOLD, MAX_ALPHA, TRANSMITTANCE_THRESHOLD
 
 SIGMA_EPS_NEG = -2e-3  # the JAX kernels' tolerance for f32 noise at sigma ~ 0
@@ -66,8 +76,31 @@ def _serial_cumprod(x: torch.Tensor) -> torch.Tensor:
     return out.movedim(0, -1)
 
 
+def tile_sets(bounds: torch.Tensor, n_tiles: int, n_pix: int, tiles: Optional[torch.Tensor] = None,
+              budget: int = _PLAIN_BUDGET) -> Iterator[Tuple[torch.Tensor, int]]:
+    """(tile ids, longest span) per batch of the tiles `tiles` (all when
+    None), in the given order, whose padded work fits `budget` elements."""
+    counts = (bounds[1:] - bounds[:-1]).long()
+    ids = torch.arange(n_tiles, device=bounds.device) if tiles is None else tiles.long()
+    for i0, i1, L in _tile_batches(counts[ids], n_pix, budget):
+        yield ids[i0:i1], L
+
+
+def _serial_colour_sum(weights: torch.Tensor, colors: torch.Tensor) -> torch.Tensor:
+    """sum_l weights[t, p, l] * colors[:, t, l] -> [nt, n_pix, D], one float32
+    product and one float32 add at a time, front to back: the kernel's
+    accumulation.  A batched product over the slots rounds in another order
+    (a matrix-vector product at D = 1 differed in the last bit)."""
+    cols = colors.permute(1, 2, 0)  # [nt, L, D]
+    acc = torch.zeros(weights.shape[:2] + (cols.shape[-1],), dtype=weights.dtype,
+                      device=weights.device)
+    for j in range(weights.shape[-1]):
+        acc = acc + weights[:, :, j, None] * cols[:, None, j, :]
+    return acc
+
+
 class _Batch(NamedTuple):
-    """The composite of tiles [t0, t1) over their padded spans of L slots."""
+    """The composite of a batch of tiles over their padded spans of L slots."""
 
     idx: torch.Tensor  # [nt, L] slot of each padded position (clamped)
     valid: torch.Tensor  # [nt, L] position lies inside the tile's span
@@ -89,17 +122,23 @@ class _Batch(NamedTuple):
     inside: torch.Tensor  # [nt, n_pix] pixel lies in the image
 
 
-def _composite_batch(fields, starts, counts, t0, t1, L, tile, tiles_w, tiles_per_image,
-                     width, height) -> _Batch:
-    """Replay tiles [t0, t1) front to back over their padded spans of L
-    slots: the decisions (gate, stop) and weights both plain versions use."""
+def _composite_batch(fields, bounds, tiles, L, tile, tiles_w, tiles_per_image, width, height,
+                     n_channels: Optional[int] = None) -> _Batch:
+    """Replay the tiles `tiles` front to back over their padded spans of L
+    slots: the decisions (gate, stop) and weights both plain versions use.
+    With `n_channels` the fields are the packed payload of that many
+    channels: unpacked, and composited with tile-local pixel centres."""
     dev = fields.device
     n_pix = tile * tile
-    tiles = torch.arange(t0, t1, device=dev)
+    starts = bounds[:-1].long()[tiles]
+    counts = (bounds[1:] - bounds[:-1]).long()[tiles]
     j = torch.arange(L, device=dev)
-    valid = j[None] < counts[t0:t1, None]  # [nt, L]
-    idx = torch.clamp(starts[t0:t1, None] + j[None], max=max(fields.shape[1] - 1, 0))
+    valid = j[None] < counts[:, None]  # [nt, L]
+    idx = torch.clamp(starts[:, None] + j[None], max=max(fields.shape[1] - 1, 0))
     g = fields[:, idx]  # [F, nt, L]
+    packed = n_channels is not None
+    if packed:
+        g = unpack_payload(g, n_channels)
     mx, my, a, b, c, op = (g[i][:, None, :] for i in range(6))
 
     im = tiles // tiles_per_image
@@ -108,8 +147,9 @@ def _composite_batch(fields, starts, counts, t0, t1, L, tile, tiles_w, tiles_per
     x = (tl % tiles_w)[:, None] * tile + (p % tile)[None]
     y = (tl // tiles_w)[:, None] * tile + (p // tile)[None]
     inside = (x < width) & (y < height)  # [nt, n_pix]
-    px = (x.to(torch.float32) + 0.5)[..., None]
-    py = (y.to(torch.float32) + 0.5)[..., None]
+    # packed: tile-local centres, as the packed means are tile-local
+    px = ((p % tile).expand_as(x) if packed else x).to(torch.float32)[..., None] + 0.5
+    py = ((p // tile).expand_as(y) if packed else y).to(torch.float32)[..., None] + 0.5
 
     dx = px - mx
     dy = py - my
@@ -136,26 +176,33 @@ def _composite_batch(fields, starts, counts, t0, t1, L, tile, tiles_w, tiles_per
     )
 
 
+def _channel_count(name, fields, packed: bool, n_channels: Optional[int]) -> int:
+    """D of the slot rows: 6+D float32 rows, or with `packed` the
+    packed_rows(n_channels) carriers of the packed payload."""
+    if not packed:
+        return fields.shape[0] - 6
+    if n_channels is None or fields.shape[0] != packed_rows(n_channels):
+        raise ValueError(f"{name}: a packed payload needs n_channels with "
+                         f"packed_rows(n_channels) == {fields.shape[0]} rows, got {n_channels}")
+    return n_channels
+
+
 def rasterize_fwd_plain(
     fields: torch.Tensor, bounds: torch.Tensor, n_images: int, tile: int,
-    tiles_w: int, tiles_h: int, width: int, height: int,
+    tiles_w: int, tiles_h: int, width: int, height: int, packed: bool = False,
+    n_channels: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1: per tile over a padded span, with a serial
-    cumulative product and the stop mask, in batches of tiles of bounded
-    size."""
-    D = fields.shape[0] - 6
+    cumulative product, the stop mask and a serial colour sum, in batches of
+    tiles of bounded size."""
+    D = _channel_count("rasterize_fwd_plain", fields, packed, n_channels)
     n_tiles = n_images * tiles_w * tiles_h
     out_c = torch.zeros((n_images, height, width, D), dtype=torch.float32, device=fields.device)
     out_t = torch.zeros((n_images, height, width), dtype=torch.float32, device=fields.device)
-    starts = bounds[:-1].long()
-    counts = (bounds[1:] - bounds[:-1]).long()
-    for t0, t1, L in _tile_batches(counts[:n_tiles], tile * tile):
-        cb = _composite_batch(
-            fields, starts, counts, t0, t1, L, tile, tiles_w, tiles_w * tiles_h, width, height
-        )
-        # a batched product over the slot axis (float32 matmul: TF32 is off
-        # by default on the card, torch.backends.cuda.matmul.allow_tf32)
-        pix = torch.einsum("tpl,dtl->tpd", cb.weights, cb.colors)
+    for ids, L in tile_sets(bounds, n_tiles, tile * tile):
+        cb = _composite_batch(fields, bounds, ids, L, tile, tiles_w, tiles_w * tiles_h, width,
+                              height, D if packed else None)
+        pix = _serial_colour_sum(cb.weights, cb.colors)
         inside = cb.inside
         at = (cb.im[:, None].expand_as(cb.x)[inside], cb.y[inside], cb.x[inside])
         out_c[at] = pix[inside]
@@ -173,43 +220,52 @@ def rasterize_fwd(
     width: int,
     height: int,
     pair_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only
+    packed: bool = False,
+    n_channels: Optional[int] = None,  # D, with `packed`
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Composite every tile front to back.
 
     Returns (colors [I, H, W, D] f32, T_final [I, H, W] f32).  On the card,
     `pair_counts` receives each tile's count of contributing (pixel, slot)
-    pairs, which the backward's live pairs must equal.
+    pairs, which the backward's live pairs must equal.  With `packed` the
+    fields are the packed payload [packed_rows(D), P] of D = n_channels.
     """
     D, n_tiles = _check_composite_args("rasterize_fwd", fields, bounds, n_images, tile,
-                                       tiles_w, tiles_h)
+                                       tiles_w, tiles_h, packed, n_channels)
     if not check_kernel_device("rasterize_fwd", fields, bounds):
         if pair_counts is not None:
             raise ValueError("pair_counts is filled by the CUDA kernel only")
-        return rasterize_fwd_plain(fields, bounds, n_images, tile, tiles_w, tiles_h, width, height)
+        return rasterize_fwd_plain(fields, bounds, n_images, tile, tiles_w, tiles_h, width, height,
+                                   packed, n_channels)
     lib = _build.load("rasterize_fwd")
     out_c = torch.empty((n_images, height, width, D), dtype=torch.float32, device=fields.device)
     out_t = torch.empty((n_images, height, width), dtype=torch.float32, device=fields.device)
     code = lib.gs_rasterize_fwd(
         fields.data_ptr(), fields.shape[1], bounds.contiguous().data_ptr(), D, tile,
-        tiles_w, tiles_w * tiles_h, width, height, n_tiles,
+        tiles_w, tiles_w * tiles_h, width, height, n_tiles, int(packed),
         out_c.data_ptr(), out_t.data_ptr(), _counts_ptr(pair_counts, n_tiles, fields.device),
         _build.stream_of(out_c),
     )
     _build.check(lib, code, "rasterize_fwd")
-    rasterize_fwd.launches += 1
+    if packed:
+        rasterize_fwd.launches_packed += 1
+    else:
+        rasterize_fwd.launches += 1
     return out_c, out_t
 
 
 rasterize_fwd.launches = 0
+rasterize_fwd.launches_packed = 0
 
 
-def _check_composite_args(name, fields, bounds, n_images, tile, tiles_w, tiles_h):
+def _check_composite_args(name, fields, bounds, n_images, tile, tiles_w, tiles_h,
+                          packed=False, n_channels=None):
     """Validate what K1 and K2 share; returns (D, n_tiles)."""
     if tile not in (8, 16, 32):
         raise ValueError(f"tile must be 8, 16 or 32, got {tile}")
     if fields.dim() != 2 or fields.dtype != torch.float32 or not fields.is_contiguous():
         raise ValueError("fields must be a contiguous float32 [6+D, P] tensor")
-    D = fields.shape[0] - 6
+    D = _channel_count(name, fields, packed, n_channels)
     if not 1 <= D <= MAX_CHANNELS:
         raise ValueError(f"{name} takes 1 to {MAX_CHANNELS} channels, got D={D}")
     n_tiles = n_images * tiles_w * tiles_h
@@ -236,20 +292,22 @@ def rasterize_bwd_plain(
     fields: torch.Tensor, bounds: torch.Tensor, n_images: int, tile: int,
     tiles_w: int, tiles_h: int, width: int, height: int,
     v_pix: torch.Tensor, v_t: torch.Tensor, pix_out: torch.Tensor, t_final: torch.Tensor,
+    packed: bool = False, pack_grads: bool = False, n_channels: Optional[int] = None,
+    tiles: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, int]:
     """Plain version of K2: the same replay as `rasterize_fwd_plain`
     (`_composite_batch`), then the per-pair gradient terms summed over each
-    tile's pixels.  Returns (v_slot [6+D, P], live (pixel, slot) pairs)."""
-    F, P = fields.shape
+    tile's pixels.  Returns (v_slot [6+D, P], or its grad_pack_rows(D)
+    carriers with `pack_grads`; live (pixel, slot) pairs).  With `tiles`
+    (tile ids) only their slots are computed; the others keep zeros."""
+    D = _channel_count("rasterize_bwd_plain", fields, packed, n_channels)
+    P = fields.shape[1]
     n_tiles = n_images * tiles_w * tiles_h
-    v_slot = torch.zeros((F, P), dtype=torch.float32, device=fields.device)
-    starts = bounds[:-1].long()
-    counts = (bounds[1:] - bounds[:-1]).long()
+    v_slot = torch.zeros((6 + D, P), dtype=torch.float32, device=fields.device)
     n_live = 0
-    for t0, t1, L in _tile_batches(counts[:n_tiles], tile * tile):
-        cb = _composite_batch(
-            fields, starts, counts, t0, t1, L, tile, tiles_w, tiles_w * tiles_h, width, height
-        )
+    for ids, L in tile_sets(bounds, n_tiles, tile * tile, tiles):
+        cb = _composite_batch(fields, bounds, ids, L, tile, tiles_w, tiles_w * tiles_h, width,
+                              height, D if packed else None)
         # pixels past the image edge read a clamped address and are never live
         at = (cb.im[:, None].expand_as(cb.x), cb.y.clamp(max=height - 1), cb.x.clamp(max=width - 1))
         vp = v_pix[at]  # [nt, n_pix, D]
@@ -271,10 +329,10 @@ def rasterize_bwd_plain(
             (cb.vis * v_alpha).sum(1),
         ]
         v_col = torch.einsum("tpd,tpl->dtl", vp, cb.weights)
-        grads = torch.cat([torch.stack(rows), v_col])  # [F, nt, L]
+        grads = torch.cat([torch.stack(rows), v_col])  # [6+D, nt, L]
         v_slot[:, cb.idx[cb.valid]] = grads[:, cb.valid]
         n_live += int(cb.live.sum())
-    return v_slot, n_live
+    return (pack_rows(v_slot) if pack_grads else v_slot), n_live
 
 
 def rasterize_bwd(
@@ -291,13 +349,19 @@ def rasterize_bwd(
     pix_out: torch.Tensor,  # [I, H, W, D] the forward's colors
     t_final: torch.Tensor,  # [I, H, W] the forward's T_final
     live_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only
+    packed: bool = False,
+    pack_grads: bool = False,
+    n_channels: Optional[int] = None,  # D, with `packed`
 ) -> torch.Tensor:
     """Per-slot gradients of (x, y, a, b, c, opacity, colors) at the sorted
     positions, [6+D, P] f32; slots outside every span are zero.  The same
     inputs give the same bits from run to run.  On the card, `live_counts`
-    receives each tile's count of live (pixel, slot) pairs."""
+    receives each tile's count of live (pixel, slot) pairs.  With `packed`
+    the fields are the packed payload the packed forward read; with
+    `pack_grads` the result is grad_pack_rows(D) bf16-pair carriers of the
+    6+D rows, zero bits outside every span."""
     D, n_tiles = _check_composite_args("rasterize_bwd", fields, bounds, n_images, tile,
-                                       tiles_w, tiles_h)
+                                       tiles_w, tiles_h, packed, n_channels)
     for name, t, shape in (("v_pix", v_pix, (n_images, height, width, D)),
                            ("v_t", v_t, (n_images, height, width)),
                            ("pix_out", pix_out, (n_images, height, width, D)),
@@ -309,19 +373,25 @@ def rasterize_bwd(
         if live_counts is not None:
             raise ValueError("live_counts is filled by the CUDA kernel only")
         return rasterize_bwd_plain(fields, bounds, n_images, tile, tiles_w, tiles_h, width,
-                                   height, v_pix, v_t, pix_out, t_final)[0]
+                                   height, v_pix, v_t, pix_out, t_final, packed, pack_grads,
+                                   D)[0]
     lib = _build.load("rasterize_bwd")
-    v_slot = torch.zeros(fields.shape, dtype=torch.float32, device=fields.device)
+    rows = grad_pack_rows(D) if pack_grads else 6 + D
+    v_slot = torch.zeros((rows, fields.shape[1]), dtype=torch.float32, device=fields.device)
     code = lib.gs_rasterize_bwd(
         fields.data_ptr(), fields.shape[1], bounds.contiguous().data_ptr(), D, tile,
-        tiles_w, tiles_w * tiles_h, width, height, n_tiles,
+        tiles_w, tiles_w * tiles_h, width, height, n_tiles, int(packed), int(pack_grads),
         v_pix.data_ptr(), v_t.data_ptr(), pix_out.data_ptr(), t_final.data_ptr(),
         v_slot.data_ptr(), _counts_ptr(live_counts, n_tiles, fields.device),
         _build.stream_of(v_slot),
     )
     _build.check(lib, code, "rasterize_bwd")
-    rasterize_bwd.launches += 1
+    if packed or pack_grads:
+        rasterize_bwd.launches_packed += 1
+    else:
+        rasterize_bwd.launches += 1
     return v_slot
 
 
 rasterize_bwd.launches = 0
+rasterize_bwd.launches_packed = 0

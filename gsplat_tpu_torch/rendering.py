@@ -29,7 +29,7 @@ import torch
 from .ops.projection import fully_fused_projection
 from .ops.projection2d import fully_fused_projection_2dgs
 from .ops.projection_ut import fully_fused_projection_ut
-from .ops.rasterize import TILE, _round_up, rasterize_to_pixels
+from .ops.rasterize import TILE, _round_up, rasterize_to_pixels, rasterize_to_pixels_fast
 from .ops.rasterize2d import rasterize_to_pixels_2dgs
 from .ops.rasterize_eval3d import rasterize_to_pixels_eval3d
 from .ops.sh import spherical_harmonics
@@ -150,6 +150,15 @@ def rasterization(
     4 * total_cameras * N, rounded to 128; `meta["isect_overflow"]` reports
     truncation.
 
+    `fast=True` is the inference path (rasterize_to_pixels_fast): the
+    bf16-pair packed payload, no autograd, about 2^-9 per field; it takes
+    the color render modes only and neither `absgrad` nor `masks`, and
+    reports `tiles_per_gauss` as zeros.  `pack_payload` and `pack_grads`
+    choose the packed payload and the packed per-slot gradients of the
+    differentiable op (rasterize_to_pixels); both default to off.  The
+    eval3d composite has no packed mode, and with `with_eval3d` `fast` has
+    no effect, as in the JAX package.
+
     `with_ut` projects through the unscented transform, which takes the
     camera models' distortion (`radial_coeffs`, ...), `ftheta_coeffs`,
     `rolling_shutter` with `viewmats_rs`, and `external_distortion`;
@@ -164,11 +173,6 @@ def rasterization(
         if not (with_ut and with_eval3d):
             raise ValueError("lidar rendering requires with_ut=True and with_eval3d=True")
         width, height = lidar_coeffs.n_columns, lidar_coeffs.n_rows  # the element grid
-    if fast:
-        raise NotImplementedError(
-            "fast=True (the bf16-pair packed inference path) is ROADMAP "
-            "Queue 1 item 6; pass fast=False"
-        )
     if absgrad and means2d_offset is None:
         raise ValueError("absgrad=True needs means2d_offset, the carrier of the gradient")
     if render_mode in _HIT_DIST_MODES and not with_eval3d:
@@ -373,11 +377,28 @@ def rasterization(
         else:
             m2_render = means2d_f + off  # its gradient is the screen-space gradient
 
-    render_colors, render_alphas, aux = render_projected(
-        m2_render, conics_f, feats_f, op, radii_f, depths_f, width, height,
-        tile_size, isect_capacity, backgrounds=bg_f, masks=masks_f,
-        absgrad=absgrad, means2d_abs=m2_abs, row_capacity=row_capacity, pack_payload=pack_payload, pack_grads=pack_grads,
-    )
+    if fast:
+        if absgrad or masks_f is not None:
+            raise ValueError("fast=True is inference-only: absgrad/masks unsupported")
+        if has_depth:
+            # the packed payload would quantize a depth channel to bf16
+            raise ValueError(
+                "fast=True supports color render modes only (depth channels would be "
+                "quantized to bf16 by the packed payload); use fast=False for "
+                "D/ED/RGB+D/RGB+ED"
+            )
+        render_colors, render_alphas, aux = rasterize_to_pixels_fast(
+            m2_render, conics_f, feats_f, op, width, height, radii_f, depths_f,
+            isect_capacity, backgrounds=bg_f, tile_size=tile_size, row_capacity=row_capacity,
+        )
+        aux["tiles_per_gauss"] = torch.zeros((I, N), dtype=torch.int32, device=radii_f.device)
+    else:
+        render_colors, render_alphas, aux = render_projected(
+            m2_render, conics_f, feats_f, op, radii_f, depths_f, width, height,
+            tile_size, isect_capacity, backgrounds=bg_f, masks=masks_f,
+            absgrad=absgrad, means2d_abs=m2_abs, row_capacity=row_capacity,
+            pack_payload=pack_payload, pack_grads=pack_grads,
+        )
 
     if render_mode_has_expected_depth(render_mode):
         depth_ch = render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)

@@ -1,9 +1,12 @@
 """GaussianInferenceScene: inference-only scenes and render_scene().
 
 Port of `gsplat_tpu/scene/inference.py`: a scene built from a training
-scene (activations applied: normalize / exp / sigmoid), stored with quats,
-scales and opacities in bf16 and means and colors in f32, and rendered
-without autograd.
+scene (activations applied: normalize / exp / sigmoid) or from tensors that
+are activated already (with the activation checks), stored with quats,
+scales and opacities in bf16, means in f32 and colors in f32 or, with
+`sh_compression="16b"`, in bf16; rendered without autograd, by default
+through the fast path (`rasterization(fast=True)`: the bf16-pair packed
+payload, about 2^-9 per field).  `release()` drops the tensors.
 """
 
 from __future__ import annotations
@@ -13,34 +16,51 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .._device import DeviceLike, resolve_device
 from .components import GaussianScene, Scene
+
+_SH_COMPRESSION = ("none", "16b")
 
 
 class GaussianInferenceScene(Scene):
     """Activation-applied, inference-only gaussian scene."""
 
-    def __init__(self, id: str, params: Dict[str, torch.Tensor], sh_degree: Optional[int]):
+    def __init__(self, id: str, params: Dict[str, torch.Tensor], sh_degree: Optional[int],
+                 sh_compression: str = "none"):
         self.id = id
-        self._params = params
+        self._params: Optional[Dict[str, torch.Tensor]] = params
         self.sh_degree = sh_degree
+        self.sh_compression = sh_compression
 
     def put(self, name: str, component: Any) -> None:
         raise TypeError("GaussianInferenceScene is immutable after build")
 
     def get(self, name: str) -> torch.Tensor:
+        if self._params is None:
+            raise ValueError(f"scene {self.id!r} has been released")
         return self._params[name]
+
+    @property
+    def is_empty(self) -> bool:
+        return self._params is None
+
+    def release(self) -> None:
+        """Drop the scene's tensors (gaussian_inference_scene.release)."""
+        self._params = None
 
     @property
     def num_gaussians(self) -> int:
         return self.get("means").shape[0]
 
     @classmethod
-    def from_gaussian_scene(cls, scene: GaussianScene, *, id: str) -> "GaussianInferenceScene":
+    def from_gaussian_scene(cls, scene: GaussianScene, *, id: str,
+                            sh_compression: str = "none") -> "GaussianInferenceScene":
         """Build from a raw training scene, applying normalize / exp /
         sigmoid.  Only the rows where `scene.alive` is set are kept."""
         splats = scene.splats
         if "features" in splats:
-            raise ValueError("appearance-optimized scenes are not supported; bake RGB first")
+            raise ValueError("appearance-optimized scenes are not supported; bake RGB and "
+                             "use from_gaussian_tensors")
         keep = (lambda x: x[scene.alive]) if scene.alive is not None else (lambda x: x)
         f32 = lambda x: keep(x).to(torch.float32)
         q = f32(splats["quats"])
@@ -65,15 +85,52 @@ class GaussianInferenceScene(Scene):
         for name, a in (("quats", quats), ("scales", scales), ("opacities", opacities)):
             if not bool(torch.isfinite(a).all()):
                 raise ValueError(f"{name} contain NaN/Inf after activation")
+        return cls._build(f32(splats["means"]), quats, scales, opacities, colors, sh_degree,
+                          sh_compression, id)
+
+    @classmethod
+    def from_gaussian_tensors(cls, means, quats, scales, opacities, colors,
+                              sh_degree: Optional[int], sh_compression: str = "none", *,
+                              id: str, device: DeviceLike = None) -> "GaussianInferenceScene":
+        """Build from activated tensors (unit quats, positive scales,
+        opacities in [0, 1]), checking those contracts.  Tensors stay on
+        their device; arrays go to `device`, the card unless named."""
+        if device is None and isinstance(means, torch.Tensor):
+            dev = means.device
+        else:
+            dev = resolve_device(device)
+        t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+        means, quats, scales, opacities, colors = map(t, (means, quats, scales, opacities, colors))
+        if means.dim() != 2 or means.shape[-1] != 3:
+            raise ValueError(f"means must be [N, 3], got {tuple(means.shape)}")
+        if not bool((scales > 0).all()):
+            raise ValueError("scales must be positive (apply exp first)")
+        if not bool(((opacities >= 0) & (opacities <= 1)).all()):
+            raise ValueError("opacities must be in [0, 1] (apply sigmoid first)")
+        qn = torch.linalg.vector_norm(quats, dim=-1)
+        if not torch.allclose(qn, torch.ones_like(qn), atol=1e-3):
+            raise ValueError("quats must be unit-norm (wxyz)")
+        if sh_degree is not None and sh_degree >= 0:
+            expected = (sh_degree + 1) ** 2
+            if colors.dim() != 3 or colors.shape[1] != expected:
+                raise ValueError(f"sh_degree={sh_degree} requires colors [N, {expected}, 3]")
+        return cls._build(means, quats, scales, opacities, colors, sh_degree, sh_compression, id)
+
+    @classmethod
+    def _build(cls, means, quats, scales, opacities, colors, sh_degree, sh_compression,
+               id) -> "GaussianInferenceScene":
+        if sh_compression not in _SH_COMPRESSION:
+            raise ValueError(f"sh_compression must be one of {_SH_COMPRESSION}, got "
+                             f"{sh_compression!r}")
         half = torch.bfloat16
         params = dict(
-            means=f32(splats["means"]),  # f32: world positions keep their full mantissa
+            means=means,  # f32: world positions keep their full mantissa
             quats=quats.to(half),
             scales=scales.to(half),
             opacities=opacities.to(half),
-            colors=colors,
+            colors=colors.to(half) if sh_compression == "16b" else colors,
         )
-        return cls(id, params, sh_degree)
+        return cls(id, params, sh_degree, sh_compression)
 
 
 @torch.no_grad()
@@ -93,8 +150,9 @@ def render_scene(
     [C, H, W, 1], meta with meta['render_path'] = 'inference').
 
     Parameters are unpacked from bf16 to f32 at the boundary.  `fast=True`
-    (the bf16-pair packed path) is not ported yet and raises for the color
-    mode; depth modes always take the exact path, as in the JAX package.
+    (the default) renders RGB through the bf16-pair packed path, about 2^-9
+    per field; the depth modes always take the exact path, as in the JAX
+    package.  A released scene raises.
     """
     from ..rendering import rasterization
 
@@ -102,6 +160,8 @@ def render_scene(
         fast = False  # the fast path is color-only
     if not isinstance(scene, GaussianInferenceScene):
         raise TypeError(f"render_scene requires a GaussianInferenceScene; got {type(scene).__name__}")
+    if scene.is_empty:
+        raise ValueError(f"scene {scene.id!r} has been released")
     f32 = lambda name: scene.get(name).to(torch.float32)
     dev = scene.get("means").device
     viewmat = torch.as_tensor(viewmat, dtype=torch.float32, device=dev)

@@ -5,8 +5,11 @@ densification strategy (default or MCMC), on a capacity-padded model with an
 Port of `examples/simple_trainer.py` (Config, knn_mean_dist, create_splats,
 Runner.__init__ on its npz branch with either strategy, render,
 make_train_step, make_update_step, train, _make_npz_targets, eval with PSNR
-only, _save, _load) for the float32 payload path (the JAX trainer's
-`pack_payload=False, pack_grads=False`).  The model has a static capacity
+only, _save, _load).  As in the JAX trainer, `render` (the training step and
+the eval) takes the bf16-pair packed sort payload and packed per-slot
+gradients by default (`Config.pack_payload`, `Config.pack_grads`, both
+True); set both False for the exact float32 path.  The targets are rendered
+exactly either way.  The model has a static capacity
 (`capacity`, 0 meaning 6x the initial points, for the default strategy;
 `cap_max` for MCMC) as in the JAX trainer, so the two compare step by step:
 the same seed gives the same initial parameters and the same batch order.
@@ -17,9 +20,9 @@ a `.npz` file in `Config.data_dir` (or the GSPLAT_TPU_TEST_DATA environment
 variable).  Targets are clean renders of the full point cloud; the last view
 is held out.  The trainer runs on the card unless `device="cpu"`.
 
-Not ported yet (ROADMAP Queue 1): the packed payloads (item 5), and pose /
-bilateral-grid / appearance / PPISP options, the viewer, TensorBoard,
-trajectories, PLY export and compression (item 12).
+Not ported yet (ROADMAP Queue 1 item 12): pose / bilateral-grid /
+appearance / PPISP options, the viewer, TensorBoard, trajectories, PLY
+export and compression.
 """
 
 from __future__ import annotations
@@ -68,6 +71,10 @@ class Config:
     refine_every: int = 100
     # the default strategy's densify threshold (mean screen-gradient norm in pixels)
     grow_grad2d: float = 2e-4
+    # bf16-pair packed sort payloads / per-slot gradients in render(), as the
+    # JAX trainer's defaults; False for the exact float32 path
+    pack_payload: bool = True
+    pack_grads: bool = True
     eval_every: int = 7000
     save_every: int = 7000
     opacity_reg: float = 0.0
@@ -225,6 +232,7 @@ class Trainer:
             isect_capacity=self.cfg.isect_capacity,
             row_capacity=self.cfg.row_capacity or None,
             means2d_offset=offset, absgrad=absgrad,
+            pack_payload=self.cfg.pack_payload, pack_grads=self.cfg.pack_grads,
         )
 
     @property

@@ -18,6 +18,9 @@ projection, the surfel projection does not cull by opacity, so the dead
 rows (zero-padded: unit scales at the origin) still emit their tile slots
 and count against the intersection capacity, though they add nothing to
 the image.  Their gradients are zero in both.
+
+The surfel composite has no packed mode: `Config.pack_payload` and
+`pack_grads`, inherited from the 3DGS config, are not read here.
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ from gsplat_tpu_torch.scene import (
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gsplat_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "simple_trainer_torch.py",
-    ROOT / "examples" / "simple_trainer_2dgs_torch.py", ROOT / "examples" / "av_trainer_torch.py"]
+    ROOT / "examples" / "simple_trainer_2dgs_torch.py", ROOT / "examples" / "av_trainer_torch.py",
+    ROOT / "examples" / "sample_inference_torch.py"]
 
 
 def _imports(path):
@@ -91,26 +92,6 @@ def _small_call(**kw):
 @pytest.mark.parametrize(
     "option",
     [
-        dict(fast=True),
-        # absgrad and means2d_offset run since the training slice; on the
-        # packed inference path they are still out of slice
-        dict(means2d_offset=torch.zeros(1, 10, 2), fast=True),
-        dict(pack_payload=True), dict(pack_grads=True),
-        # with_ut, with_eval3d and the lidar run since the eval3d slice; the
-        # packed paths stay out of slice behind the UT projection too
-        dict(with_ut=True, fast=True), dict(with_ut=True, pack_payload=True),
-        dict(with_ut=True, pack_grads=True), dict(with_ut=True, render_mode="D", fast=True),
-    ],
-    ids=lambda o: "+".join(o) if "with_ut" in o else next(iter(o)),
-)
-def test_out_of_slice_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        _small_call(**option)
-
-
-@pytest.mark.parametrize(
-    "option",
-    [
         # the eval3d composite carries no screen-space gradient
         dict(absgrad=True, means2d_offset=torch.zeros(1, 10, 2), with_ut=True, with_eval3d=True),
         dict(means2d_offset=torch.zeros(1, 10, 2), with_ut=True, with_eval3d=True),
@@ -124,6 +105,13 @@ def test_out_of_slice_options_raise(option):
         dict(with_eval3d=True, pack_payload=True),
         dict(with_eval3d=True, masks=torch.ones(1, 2, 2, dtype=torch.bool)),
         dict(with_eval3d=True, tile_size=8),
+        # the fast path is inference-only and colour-only (rendering.py:586-599)
+        dict(fast=True, absgrad=True, means2d_offset=torch.zeros(1, 10, 2)),
+        dict(fast=True, masks=torch.ones(1, 2, 2, dtype=torch.bool)),
+        *(pytest.param(dict(fast=True, render_mode=m), id=f"fast+render_mode={m}")
+          for m in ("D", "ED", "RGB+D", "RGB+ED")),
+        pytest.param(dict(fast=True, render_mode="D", with_ut=True),
+                     id="fast+render_mode=D+with_ut"),
     ],
     ids=lambda o: "+".join(o),
 )
@@ -168,16 +156,24 @@ def test_in_slice_call_and_backward_raises():
 
 
 def test_render_scene_fast_raises_and_depth_modes_take_the_exact_path():
+    """render_scene takes the fast path for RGB by default (no autograd, no
+    AABB tile counts), the exact path for depth modes; a released scene
+    raises."""
     sp = _splats()
     scene = splats_from_numpy(sp, device="cpu")
     inf = GaussianInferenceScene.from_gaussian_scene(scene, id="s")
     vm = np.eye(4, dtype=np.float32)
     vm[2, 3] = 4.0
     K = np.array([[20.0, 0, 16], [0, 20.0, 16], [0, 0, 1]], np.float32)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        render_scene(inf, viewmat=vm, K=K, width=32, height=32)
+    c, a, meta = render_scene(inf, viewmat=vm, K=K, width=32, height=32)
+    assert c.shape == (1, 32, 32, 3) and float(a.max()) > 0
+    assert (meta["tiles_per_gauss"] == 0).all()  # the fast path's meta
     c, a, meta = render_scene(inf, viewmat=vm, K=K, width=32, height=32, render_mode="D")
     assert c.shape == (1, 32, 32, 1) and meta["render_path"] == "inference"
+    assert int(meta["tiles_per_gauss"].sum()) > 0  # the exact path
+    inf.release()
+    with pytest.raises(ValueError, match="released"):
+        render_scene(inf, viewmat=vm, K=K, width=32, height=32)
 
 
 @pytest.mark.gpu
@@ -258,6 +254,97 @@ def test_kernels_match_plain_versions_on_the_card(D):
         for row, row_p in zip(vg, vg_p):
             assert (row - row_p).abs().max().item() <= 1e-5 * max(1.0, row_p.abs().max().item())
         assert torch.equal(vg, tsg.segment_rowsum(v_emit, plan.slot_bounds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 3, 4, 32])
+def test_packed_kernels_match_plain_versions_on_the_card(D):
+    """K4 packed and K1 packed bit for bit against their plain versions, K2 in
+    its packed modes (payload, gradients, both) within 1e-5 of each row's
+    largest entry (after unpacking; one bf16 ulp per carrier half where the
+    kernel's and the plain version's sums round to neighbouring bf16
+    values), with the forward's contributing pairs as its live pairs.  Some
+    colours are bf16 ties, f32 denormals and -0, which every rounding of the
+    carriers must keep alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import bf16pair as tb
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+    from gsplat_tpu_torch.ops import rasterize_kernel as tk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    I, N, Wd, Hd = 2, 3000, 200, 150
+    m2 = torch.rand(I, N, 2, generator=g, device=dev) * torch.tensor([Wd, Hd], device=dev)
+    a = torch.rand(I, N, generator=g, device=dev) * 0.5 + 0.02
+    c = torch.rand(I, N, generator=g, device=dev) * 0.5 + 0.02
+    b = (torch.rand(I, N, generator=g, device=dev) - 0.5) * torch.sqrt(a * c)
+    cn = torch.stack([a, b, c], -1)
+    cl = torch.rand(I, N, D, generator=g, device=dev)
+    edges = torch.tensor([1e-40, -0.0, 0.0, 1.0 + 2**-8, 1.0 + 3 * 2**-8, -1e-39], device=dev)
+    cl[0, :6, 0] = edges
+    op = torch.rand(I, N, generator=g, device=dev)
+    dep = torch.rand(I, N, generator=g, device=dev) + 0.5
+    rad = torch.full((I, N, 2), 12, dtype=torch.int32, device=dev)
+    R = tb.packed_rows(D)
+    for ts in (8, 16, 32):
+        tw, th = -(-Wd // ts), -(-Hd // ts)
+        T = I * tw * th
+        comp = tr.compact_by_depth(m2, cn, cl, op, rad, dep)
+        plan = tr.make_tight_plan(comp.means2d, comp.radii, comp.conics, comp.opacities,
+                                  comp.image_ids, comp.n_live, I, ts, tw, th, 1 << 18, 1 << 17)
+        table = tr.field_table(comp, plan.dummy)
+        args = (plan.rr, table, plan.n_slots, 1 << 18, tw, tw * th, T)
+        launched = tg.expand_emission.launches_packed
+        keys, fields = tg.expand_emission(*args, packed=True, tile_size=ts)
+        keys_p, fields_p = tg.expand_emission_plain(*args, packed=True, tile_size=ts)
+        assert tg.expand_emission.launches_packed == launched + 1
+        assert fields.shape == (R, 1 << 18)
+        assert torch.equal(keys, keys_p)
+        assert torch.equal(fields.view(torch.int32), fields_p.view(torch.int32))
+        fs, bounds, _ = tr.sort_slots(keys, fields, T)
+        kept = torch.empty(T, dtype=torch.int32, device=dev)
+        geo = (I, ts, tw, th, Wd, Hd)
+        col, t = tk.rasterize_fwd(fs, bounds, *geo, pair_counts=kept, packed=True, n_channels=D)
+        col_p, t_p = tk.rasterize_fwd_plain(fs, bounds, *geo, packed=True, n_channels=D)
+        torch.cuda.synchronize()
+        assert torch.equal(col, col_p) and torch.equal(t, t_p)
+        assert int(kept.sum()) > 0
+
+        v_pix = torch.randn(col.shape, generator=g, device=dev)
+        v_t = torch.randn(t.shape, generator=g, device=dev)
+        for packed, pack_grads in ((True, False), (True, True), (False, True)):
+            fields_in = fs
+            if not packed:  # pack_grads alone: the float32 slot rows
+                k32, f32 = tg.expand_emission(*args)
+                fields_in, bounds_in, _ = tr.sort_slots(k32, f32, T)
+                out32 = tk.rasterize_fwd(fields_in, bounds_in, *geo, pair_counts=kept)
+                bargs = (fields_in, bounds_in, *geo, v_pix, v_t, *out32)
+            else:
+                bargs = (fs, bounds, *geo, v_pix, v_t, col, t)
+            modes = dict(packed=packed, pack_grads=pack_grads, n_channels=D)
+            live = torch.empty(T, dtype=torch.int32, device=dev)
+            v_slot = tk.rasterize_bwd(*bargs, live_counts=live, **modes)
+            v_slot_p, n_live_p = tk.rasterize_bwd_plain(*bargs, **modes)
+            torch.cuda.synchronize()
+            assert torch.equal(live, kept), "the backward's live pairs differ from the forward's"
+            assert int(live.sum()) == n_live_p > 0
+            again = tk.rasterize_bwd(*bargs, **modes)
+            assert torch.equal(v_slot.view(torch.int32), again.view(torch.int32)), "two runs differ"
+            n_sorted = int(bargs[1][-1])
+            assert (v_slot.view(torch.int32)[:, n_sorted:] == 0).all()
+            if pack_grads:
+                assert v_slot.shape[0] == tb.grad_pack_rows(D)
+                got, want = tb.unpack_rows(v_slot, 6 + D), tb.unpack_rows(v_slot_p, 6 + D)
+                # one bf16 ulp (at most 2^-7 of the value) per half, else the
+                # row tolerance
+                ulp = 2.0**-7 * torch.maximum(got.abs(), want.abs())
+            else:
+                got, want, ulp = v_slot, v_slot_p, torch.zeros_like(v_slot)
+            for row, row_p, u in zip(got, want, ulp):
+                scale = row_p.abs().max().item()
+                allowed = torch.clamp(u, min=1e-5 * scale)
+                assert bool(((row - row_p).abs() <= allowed).all())
 
 
 @pytest.mark.gpu

@@ -3,7 +3,9 @@
 Both trainers start from the same numpy seed (identical initial parameters
 and batch order).  The JAX step runs `Runner.make_train_step` with
 `pack_payload=False, pack_grads=False, fixed_batch=True` (Pallas in interpret
-mode); the port runs on device="cpu" with its plain kernel versions.
+mode); the port runs on device="cpu" with its plain kernel versions and the
+same flags off (both trainers default to the packed payloads; the packed
+step is compared in tests/test_torch_trainer_packed.py).
 
 Selective Adam has no bias correction: its first step moves a parameter by
 about 3.16 * lr * sign(g) however small g is, so float32 noise around g = 0
@@ -80,7 +82,8 @@ def both(tiny_npz, tmp_path_factory):
     out = tmp_path_factory.mktemp("out")
     runner = Runner(JConfig(**_cfg_kw(out / "jax", capacity=512, pack_payload=False,
                                       pack_grads=False, tb_every=0)))
-    trainer = Trainer(Config(**_cfg_kw(out / "torch")), data=_tiny_data(), device="cpu")
+    trainer = Trainer(Config(**_cfg_kw(out / "torch", pack_payload=False, pack_grads=False)),
+                      data=_tiny_data(), device="cpu")
     return runner, trainer
 
 

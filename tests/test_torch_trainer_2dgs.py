@@ -53,7 +53,9 @@ def runners(tmp_path_factory):
     j2 = Runner2DGS(J2Config(**_kw(out / "j2", tb_every=0, **surf)))
     t2 = Trainer2DGS(Config2DGS(**_kw(out / "t2", **surf)), data=_tiny_data(), device="cpu")
     j3 = Runner(JConfig(**_kw(out / "j3", tb_every=0, pack_payload=False, pack_grads=False)))
-    t3 = Trainer(Config(**_kw(out / "t3")), data=_tiny_data(), device="cpu")
+    # the JAX runner's flags on the port too: its Config packs by default
+    t3 = Trainer(Config(**_kw(out / "t3", pack_payload=False, pack_grads=False)),
+                 data=_tiny_data(), device="cpu")
     for r, t in ((j2, t2), (j3, t3)):
         schedule = dict(refine_start_iter=1, reset_every=1000)
         r.strategy = r.strategy.__class__(**{**r.strategy.__dict__, **schedule})
