@@ -8,7 +8,9 @@ Run from the repository root, on a machine with a CUDA card:
 
 Phases:
   1. print the card's name and power limit (nvidia-smi), build the kernels
-     from csrc/ (one nvcc per source, in parallel) and print the seconds;
+     from csrc/ (one nvcc per source, in parallel) and print the seconds,
+     then the registers and spills nvcc reports for K5 and K6b (and any
+     spill of another kernel);
   2. serving: a synthetic scene of the benchmark's size (2,794,625
      gaussians, SH degree 3, 25 grid cells of 111,785 points, made from a
      fixed seed) goes through splats_from_numpy -> GaussianScene ->
@@ -54,8 +56,8 @@ Phases:
      1e-5 of its largest entry after unpacking, one bf16 ulp allowed; the
      live pairs equal to K1 packed's contributing pairs in every tile); then,
      on one more step with both packed flags off, K2 (1e-4 of each row's
-     largest entry on every tile, the live pairs equal to K1's) and K5 (1e-5
-     of each row's largest entry), each timed, K5 beside
+     largest entry on every tile, the live pairs equal to K1's) and K5
+     (bit for bit, and on a rerun), each timed, K5 beside
      torch.segment_reduce;
   9. training profile: the stages of 3 training steps by CUDA events, and a
      torch.profiler trace of 3 steps;
@@ -72,7 +74,9 @@ Phases:
      and overflow, the gaussians each refine adds and prunes (growth must
      happen, and the first refine must prune at least the planted surfels)
      and the held-out PSNR are printed;
- 11. 2DGS kernels, on one more training step's own inputs at 3840x2160: K8
+ 11. 2DGS kernels, on one more training step's own inputs at 3840x2160: K5
+     bit for bit (and on a rerun), timed beside torch.segment_reduce (the
+     `kernels` line files these under K5's `2dgs_check`); K8
      and K9 equal to their plain versions bit for bit; K6a bit for bit on the
      tiles with the longest spans and a seeded sample of the others (the
      plain replay of every tile at 4k would take hours), with its
@@ -123,6 +127,7 @@ import collections
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -1019,6 +1024,49 @@ def k2_work(args, modes, n_live, W, H):
     return pairs, nbytes, K1_FLOP_PER_PAIR * pairs + k2_flop_per_live_pair(D) * n_live
 
 
+def check_segment_rowsum(args, what: str, timer, log):
+    """K5 on a step's own arguments: equal bit for bit to its plain version
+    (both add each run serially in slot order, each add a float32 add) and
+    to itself on a rerun.  Returns (its output, 0.0, the plain version's ms)."""
+    got = sk.segment_rowsum(*args)
+    out = []
+    plain_ms = timer(lambda: out.append(sk.segment_rowsum_plain(*args)), 1, warm=False)
+    require(torch.equal(got, out[0]), f"segment_rowsum ({what}) != plain")
+    require(torch.equal(got, sk.segment_rowsum(*args)), f"segment_rowsum ({what}): two runs differ")
+    data, bounds = args
+    log(f"segment_rowsum ({what}): equal to its plain version bit for bit and on a rerun; "
+        f"{data.shape[0]} rows, {bounds.shape[0] - 1} segments, {int(bounds[-1])} slots of "
+        f"{data.shape[1]}; runs {json.dumps(run_lengths(bounds))}")
+    return got, 0.0, plain_ms
+
+
+def run_lengths(bounds) -> dict:
+    """The segments' runs: mean, longest, and how many exceed 64 slots,
+    the runs a lane of K5 loads in more than one round."""
+    runs = (bounds[1:] - bounds[:-1]).double()
+    return {"mean": float(runs.mean()), "longest": int(runs.max()),
+            "over_64": int((runs > 64).sum())}
+
+
+def segment_reduce_ms(data, bounds, got, timer, log):
+    """The time of torch.segment_reduce, the one PyTorch call that computes
+    K5's function (used nowhere in the port), on the same data."""
+    n_summed = int(bounds[-1])
+    data_t = data[:, :n_summed].t().contiguous()
+    offsets = bounds.long()
+    try:
+        lib = torch.segment_reduce(data_t, "sum", offsets=offsets, axis=0)
+        e = float((lib.t() - got).abs().max())
+        del lib
+        ms = timer(lambda: torch.segment_reduce(data_t, "sum", offsets=offsets, axis=0), 5,
+                   warm=False)
+        log(f"torch.segment_reduce on the same data: {ms:.4f} ms, max |d| to K5 {e:.3g}")
+        return ms
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"torch.segment_reduce does not run here: {str(exc)[:200]}")
+        return None
+
+
 def check_and_time_training_kernels(tr, probes, exact_probes, launches, serving_err, timer, log):
     """Phase 8: K2 in the trainer's packed modes on the first probed step's
     own arguments, on sampled tiles (PLAIN_TILES: its plain replay of every
@@ -1042,13 +1090,7 @@ def check_and_time_training_kernels(tr, probes, exact_probes, launches, serving_
             "the exact step's K2 ran packed")
     e2, n_live, plain_ms = check_bwd_kernel(k2_args, f"tile {TILE} at {W}x{H} (training step)",
                                             log)
-    got = sk.segment_rowsum(*k5_args)
-    want = sk.segment_rowsum_plain(*k5_args)
-    # both add a segment serially in slot order; the plain version's adds are
-    # batched over segments but each is the same float32 add
-    worst, e5 = rows_close(got, want, 1e-5, "segment_rowsum (training step)", log)
-    log(f"segment_rowsum (training step): max error {worst:.3g} of the row's largest entry, "
-        f"{k5_args[1].shape[0] - 1} segments")
+    got, e5, k5_plain_ms = check_segment_rowsum(k5_args, "training step", timer, log)
 
     pairs_p, k2p_bytes, k2p_ops = k2_work(k2p_args, k2p_kw, n_live_p, W, H)
     pairs, k2_bytes, k2_ops = k2_work(k2_args, {}, n_live, W, H)
@@ -1061,20 +1103,8 @@ def check_and_time_training_kernels(tr, probes, exact_probes, launches, serving_
         f"{int(k2_args[1][-1])} slots; segment_rowsum: {n_summed} slots in {n_seg} segments, "
         f"{data.shape[0]} rows")
 
-    library_ms = None
-    if on_card:
-        # the one PyTorch call that computes K5's function; used nowhere in the port
-        data_t = data[:, :n_summed].t().contiguous()
-        offsets = seg_bounds.long()
-        try:
-            lib = torch.segment_reduce(data_t, "sum", offsets=offsets, axis=0)
-            e = float((lib.t() - got).abs().max())
-            library_ms = timer(lambda: torch.segment_reduce(data_t, "sum", offsets=offsets, axis=0),
-                               5, warm=False)
-            log(f"torch.segment_reduce on the same data: max |d| to K5 {e:.3g}")
-        except (RuntimeError, NotImplementedError) as exc:
-            log(f"torch.segment_reduce does not run here: {str(exc)[:200]}")
-        del data_t
+    library_ms = segment_reduce_ms(data, seg_bounds, got, timer, log) if on_card else None
+    del got
 
     records = [
         kernel_record("rasterize_bwd_packed", launches["rasterize_bwd_packed"],
@@ -1087,9 +1117,9 @@ def check_and_time_training_kernels(tr, probes, exact_probes, launches, serving_
                       k2_bytes, k2_ops),
         kernel_record("segment_rowsum", launches["segment_rowsum"], e5,
                       timer(lambda: sk.segment_rowsum(*k5_args), 20, warm=False),
-                      timer(lambda: sk.segment_rowsum_plain(*k5_args), 1, warm=False),
-                      k5_bytes, 0, library_ms),
+                      k5_plain_ms, k5_bytes, 0, library_ms),
     ]
+    records[-1]["runs"] = run_lengths(seg_bounds)
     records[0]["plain_on"] = f"{tiles.numel()} of {counts.shape[0]} tiles"
     return records
 
@@ -1289,15 +1319,23 @@ def check_surfel_kernels(tr, args, launches, timer, log):
         if on_card:
             torch.cuda.empty_cache()
 
-    # K5 on the surfel step's slot gradients
+    # K5 on the surfel step's slot gradients, timed beside torch.segment_reduce
     k5 = args.pop("segment_rowsum")
-    worst, _ = rows_close(sk.segment_rowsum(*k5), sk.segment_rowsum_plain(*k5), 1e-5,
-                          "segment_rowsum (2DGS training step)", log)
-    log(f"segment_rowsum (2DGS training step): max error {worst:.3g} of the row's largest entry")
-    del k5
+    got, _, plain_ms = check_segment_rowsum(k5, "2DGS training step", timer, log)
+    library_ms = segment_reduce_ms(*k5, got, timer, log) if on_card else None
+    del got
+    release()
+    data, seg = k5
+    n_seg, n_summed = seg.shape[0] - 1, int(seg[-1])
+    k5_2dgs = kernel_record(
+        "segment_rowsum", launches["segment_rowsum"], 0.0,
+        timer(lambda: sk.segment_rowsum(*k5), 10), plain_ms,
+        4 * (data.shape[0] * n_summed + data.shape[0] * n_seg + n_seg + 1), 0, library_ms)
+    k5_2dgs["runs"] = run_lengths(seg)
+    del k5, data, seg
     release()
 
-    records = []
+    records = [k5_2dgs]  # run() files it under the 3DGS step's K5 record
 
     # K9: the gather into sorted order, exact, row by row; torch.index_select beside it
     rows, src = args.pop("align_rows")
@@ -2047,6 +2085,13 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
         rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                    "bound_by", "plain_on")}
+    k5_2dgs = surfel_records.pop(0)
+    require(k5_2dgs["name"] == "segment_rowsum", "the 2DGS step's K5 record is missing")
+    for rec in train_records:
+        if rec["name"] == "segment_rowsum":
+            rec["2dgs_check"] = {k: k5_2dgs[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "runs")}
     records = records + train_records + surfel_records + gut_records
     # each kernel's launches on every path, and on its own path as `launches`
     paths = {"serving": launches, "serving_exact": exact_launches, "training": train_launches,
@@ -2081,6 +2126,40 @@ def device_profile(unit_fn, unit_ms: float, log, unit: str, n: int = 3) -> None:
         log(json.dumps({"kernel": name[:100], f"ms_per_{unit}": ms}))
 
 
+def ptxas_summary(report: str, keep) -> list:
+    """(kernel, registers, spill stores, spill loads) of each entry of an
+    `nvcc -Xptxas -v` report whose mangled name passes `keep`."""
+    rows, entry, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            if keep(entry):
+                rows.append((entry, int(m.group(1)), *spills))
+            entry = None
+    return rows
+
+
+def log_registers(log) -> None:
+    """Registers and spills of the kernels redesigned last, from the build's
+    own nvcc report, and any spill anywhere."""
+    for name, keep in (("segsum", lambda e: True),
+                       ("rasterize2d_bwd", lambda e: re.search(r"ILi(1|4|19|32)E", e))):
+        for entry, regs, st, ld in ptxas_summary(_build.ptxas_report(name), keep):
+            log(json.dumps({"ptxas": name, "entry": entry[-60:], "registers": regs,
+                            "spill_stores": st, "spill_loads": ld}))
+    for name in _build.SOURCE_FLAGS:
+        report = _build.ptxas_report(name)
+        spilled = [e for e, _, st, ld in ptxas_summary(report, lambda e: True) if st or ld]
+        if spilled:
+            log(json.dumps({"ptxas": name, "entries_with_spills": len(spilled)}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -2094,6 +2173,7 @@ def main() -> int:
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t:.1f} s ({json.dumps({k: round(v, 1) for k, v in built.items()})})",
           flush=True)
+    log_registers(lambda m: print(m, flush=True))
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain composite's colour sum
     torch.backends.cudnn.allow_tf32 = False
     try:

@@ -35,6 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "gsplat_tpu_torch
 COMMON_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xptxas", "-v",  # each kernel's registers, shared memory and spills: ptxas_report
 ]
 # Per-source flags.  expand.cu must round every f32 operation on its own
 # (no fused multiply-add) so that its floor/ceil give the same integers as
@@ -91,6 +92,18 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _report_path(name: str) -> Path:
+    return _lib_path(name).with_suffix(".ptxas")
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's `-Xptxas -v` report for the current build of `csrc/<name>.cu`
+    (registers, shared memory and spills of each kernel), kept beside the
+    library so that a cached build still has it; "" if it was never built."""
+    path = _report_path(name)
+    return path.read_text() if path.exists() else ""
+
+
 def build_all() -> Dict[str, float]:
     """Compile every source that has no current build; returns seconds each.
 
@@ -120,6 +133,7 @@ def build_all() -> Dict[str, float]:
                 os.unlink(tmp)
                 errors.append(f"nvcc failed for {name}.cu:\n{out}")
             else:
+                _report_path(name).write_text(out)
                 os.replace(tmp, _lib_path(name))
         if errors:
             raise RuntimeError("\n".join(errors))

@@ -22,7 +22,8 @@ resume a stopped pixel in a later 128-slot chunk and carry the median slot
 in float32; neither is copied.  The plain forward repeats the kernel's
 arithmetic operation by operation, its sums serial in slot order, so that the
 two agree bit for bit; the two backwards differ by the order of the sums
-over a tile's pixels.
+over a tile's pixels, and K6b forms the ray transform's rows from three
+per-slot sums of the 3D response's gradient.
 """
 
 from __future__ import annotations
@@ -373,7 +374,8 @@ def rasterize2d_bwd(
         return rasterize2d_bwd_plain(fields, bounds, n_images, tiles_w, tiles_h, width, height,
                                      v_pix, v_t, pix_out, t_final, med_slot)[0]
     lib = _build.load("rasterize2d_bwd")
-    v_slot = torch.zeros(fields.shape, dtype=torch.float32, device=fields.device)
+    # the kernel writes every element, zeros where no live pair reaches
+    v_slot = torch.empty(fields.shape, dtype=torch.float32, device=fields.device)
     code = lib.gs_rasterize2d_bwd(
         fields.data_ptr(), fields.shape[1], bounds.contiguous().data_ptr(), D, tiles_w,
         tiles_w * tiles_h, width, height, n_tiles, v_pix.data_ptr(), v_t.data_ptr(),

@@ -22,6 +22,7 @@ the plain screen-space gradient without a carrier.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -87,6 +88,29 @@ def render_projected(
     )
 
 
+def _warn_parity_arguments(sparse_grad: bool, segmented: bool, channel_chunk: int) -> None:
+    """The JAX package's warnings for the parity arguments that change
+    nothing (gsplat_tpu/rendering.py:215-246)."""
+    if sparse_grad:
+        warnings.warn(
+            "sparse_grad=True has no effect on this path: gradients are dense tensors "
+            "(visibility compaction already bounds the working set)",
+            stacklevel=3,
+        )
+    if segmented:
+        warnings.warn(
+            "segmented=True has no effect on this path: the sort is a single sort over "
+            "(tile, depth) keys",
+            stacklevel=3,
+        )
+    if channel_chunk != 32:
+        warnings.warn(
+            "channel_chunk has no effect on this path: the kernels composite all D "
+            "channels in one pass (D <= 32)",
+            stacklevel=3,
+        )
+
+
 def _broadcast_feats(x, batch_dims, C, N, I):
     """[..., N, D] or [..., C, N, D] -> [I, N, D]."""
     if x.dim() == len(batch_dims) + 2:
@@ -109,12 +133,17 @@ def rasterization(
     radius_clip: float = 0.0,
     eps2d: float = 0.3,
     sh_degree: Optional[int] = None,
+    packed: bool = True,  # parity argument: compaction is always on
     tile_size: int = TILE,
     backgrounds: Optional[torch.Tensor] = None,  # [..., C, D]
     render_mode: str = "RGB",
+    sparse_grad: bool = False,  # parity argument: warns, gradients are dense
     absgrad: bool = False,
     rasterize_mode: str = "classic",
+    channel_chunk: int = 32,  # parity argument: warns, every channel in one pass
+    distributed: bool = False,  # parity argument: the single-process path
     camera_model: str = "pinhole",
+    segmented: bool = False,  # parity argument: warns, one sort over (tile, depth)
     covars: Optional[torch.Tensor] = None,  # [..., N, 3, 3] or [..., N, 6]
     masks: Optional[torch.Tensor] = None,  # [..., C, th, tw] bool tile masks
     isect_capacity: Optional[int] = None,
@@ -166,7 +195,14 @@ def rasterization(
     camera model, or `rays`), with `return_normals` in
     meta["render_normals"].  camera_model="lidar" renders the element grid
     of `lidar_coeffs` (with_ut and with_eval3d both required).
+
+    `packed`, `sparse_grad`, `channel_chunk`, `distributed` and `segmented`
+    sit where the JAX package's `rasterization` has them and behave as
+    there: every call compacts by visibility (`packed`), one process renders
+    (`distributed`), and `sparse_grad=True`, `segmented=True` and a
+    `channel_chunk` other than 32 warn that they change nothing.
     """
+    _warn_parity_arguments(sparse_grad, segmented, channel_chunk)
     if camera_model == "lidar":
         if lidar_coeffs is None:
             raise ValueError("camera_model='lidar' requires lidar_coeffs")
@@ -468,6 +504,7 @@ def rasterization_2dgs(
     tile_size: int = TILE,
     backgrounds: Optional[torch.Tensor] = None,  # [C, D]
     render_mode: str = "RGB",
+    distloss: bool = False,  # parity argument: the distortion is always rendered
     depth_mode: str = "expected",  # "expected" | "median"
     isect_capacity: Optional[int] = None,
     densify: Optional[torch.Tensor] = None,  # [C, N, 2] screen-gradient carrier
@@ -480,7 +517,8 @@ def rasterization_2dgs(
     [C, H, W, 1], meta).  The depth channel is always rendered last (it drives
     the distortion and the median); X drops it for RGB.  `densify` (zeros,
     requires_grad) receives the screen gradient that the default strategy
-    reads, as meta["gradient_2dgs"].
+    reads, as meta["gradient_2dgs"].  `distloss` sits where the JAX
+    package's `rasterization_2dgs` has it and, as there, changes nothing.
     """
     if render_mode not in _MODES_2DGS:
         raise ValueError(f"unsupported 2DGS render_mode: {render_mode!r}")
