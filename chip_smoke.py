@@ -9,8 +9,8 @@ Run from the repository root, on a machine with a CUDA card:
 Phases:
   1. print the card's name and power limit (nvidia-smi), build the kernels
      from csrc/ (one nvcc per source, in parallel) and print the seconds,
-     then the registers and spills nvcc reports for K5 and K6b (and any
-     spill of another kernel);
+     then the registers and spills nvcc reports for K5, K6a and K6b (and
+     any spill of another kernel);
   2. serving: a synthetic scene of the benchmark's size (2,794,625
      gaussians, SH degree 3, 25 grid cells of 111,785 points, made from a
      fixed seed) goes through splats_from_numpy -> GaussianScene ->
@@ -80,7 +80,11 @@ Phases:
      and K9 equal to their plain versions bit for bit; K6a bit for bit on the
      tiles with the longest spans and a seeded sample of the others (the
      plain replay of every tile at 4k would take hours), with its
-     contributing pairs equal to K6b's live pairs in every tile; K6b within
+     contributing pairs equal to K6b's live pairs in every tile, and no
+     pair gated by its early reject that the exact path would keep (its
+     counting build runs both on every rejected pair; the pairs evaluated,
+     the share through the exact path and the contributing pairs are
+     printed); K6b within
      1e-4 of each row's largest entry on the same tiles; with only the
      median's cotangent set, the depth row of K6b's output equal to the
      count of pixels whose median each slot is; the largest sorted position
@@ -249,7 +253,12 @@ SURFEL_SCHEDULE = dict(refine_start_iter=1, refine_every=3, reset_every=6)
 # the trainer's opacity 0.1 no surfel falls below 0.005 in a few steps (the
 # reset only clamps to twice the threshold).
 PLANT_EVERY, PLANTED_OPACITY = 97, 0.001
-K6A_FLOP_PER_PAIR = 42  # the surfel response per evaluated (pixel, slot), csrc/surfel.cuh
+K6A_FLOP_PER_PAIR = 42  # the exact path's surfel response per (pixel, slot), csrc/surfel.cuh
+# csrc/surfel.cuh's early reject per slot a tile reaches: the gate term (12
+# finiteness tests, ln and 4 more), the three components' A, B, C, a, b, k,
+# S, e and reach (39 each), and per 8x4 block its centre's c (6 fused
+# multiply-adds, 12 operations) and 25 more to test it
+K6A_FLOP_PER_SLOT_MASK = 17 + 3 * 39 + 1 + 8 * (2 + 12 + 23)
 PLAIN_TILES = (16, 112)  # K6a, K6b, K7a, K7b plain: the longest spans, then a seeded sample
 EVAL3D_KERNELS = ("expand_emission_aabb", "align_rows", "rasterize_eval3d_fwd",
                   "rasterize_eval3d_bwd", "segment_rowsum")
@@ -296,6 +305,17 @@ def k6a_flop_per_live_pair(D: int) -> int:
     """A live pair's weight, its D + 3 channel sums, distortion, A, B and
     the median test."""
     return 2 * (D + 3) + 10
+
+
+def k6_gate_flops(n_exact: int, eval_counts: torch.Tensor) -> int:
+    """The operations K6a's and K6b's function needs to decide its pairs,
+    given the early reject: the exact path on each pair the block masks do
+    not gate, and one gate term and block mask per slot that a tile reaches.
+    A tile's walk reaches a prefix of its span, each slot of it at no more
+    than its 256 pixels, so it reaches at least ceil(evaluated / 256) slots;
+    that least count is the one taken."""
+    reached = int(((eval_counts.long() + 255) // 256).sum())
+    return K6A_FLOP_PER_PAIR * n_exact + K6A_FLOP_PER_SLOT_MASK * reached
 
 
 def k6b_flop_per_live_pair(D: int) -> int:
@@ -496,6 +516,12 @@ def cuda_timer(fn, reps: int, warm: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes, nops) -> float:
+    """The least time for moving `nbytes` and doing `nops` float32
+    operations on the card: the larger of the two."""
+    return max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS) * 1e3
 
 
 def kernel_record(name, launches, err, ms, plain_ms, nbytes, nops, library_ms=None):
@@ -1382,11 +1408,21 @@ def check_surfel_kernels(tr, args, launches, timer, log):
     F = fields.shape[0]
     D = F - 15
     n_sorted = int(bounds[-1])
-    # the per-tile pair counts come from the kernel (a CPU rehearsal has none)
-    kept = torch.zeros(T, dtype=torch.int32, device=dev)
-    n_eval = torch.zeros(T, dtype=torch.int32, device=dev)
-    counted = dict(pair_counts=kept, eval_counts=n_eval) if on_card else {}
+    # the per-tile pair counts come from the kernel (a CPU rehearsal has none):
+    # contributing, evaluated, taken by the exact path, and rejected pairs
+    # that the exact path (run on them too) would not have gated
+    kept, n_eval, n_exact, unsound = (torch.zeros(T, dtype=torch.int32, device=dev)
+                                      for _ in range(4))
+    counted = dict(pair_counts=kept, eval_counts=n_eval, exact_counts=n_exact,
+                   unsound_counts=unsound) if on_card else {}
     out, t_fin, med = r2k.rasterize2d_fwd(*k6a, **counted)
+    n_pairs, n_live, n_exact_pairs = int(n_eval.sum()), int(kept.sum()), int(n_exact.sum())
+    require(int(unsound.sum()) == 0,
+            f"rasterize2d_fwd: the early reject gated {int(unsound.sum())} pairs that the exact "
+            f"path keeps, in {int((unsound > 0).sum())} tiles")
+    log(f"rasterize2d_fwd pairs: {n_pairs} evaluated, {n_exact_pairs} "
+        f"({n_exact_pairs / max(n_pairs, 1):.4f}) through the exact path, {n_live} contributing, "
+        f"0 rejected that the exact path keeps")
     require(torch.equal(out, k6b[9]) and torch.equal(t_fin, k6b[10])
             and torch.equal(med, k6b[11]), "rasterize2d_fwd: a rerun differs from the step's")
     counts = (bounds[1:] - bounds[:-1]).long()
@@ -1398,16 +1434,24 @@ def check_surfel_kernels(tr, args, launches, timer, log):
             and torch.equal(med[on_tiles], med_p[on_tiles]),
             "rasterize2d_fwd != plain on the sampled tiles")
     del out_p, t_p, med_p, out, t_fin
-    n_pairs, n_live = int(n_eval.sum()), int(kept.sum())
     log(f"rasterize2d_fwd at {W}x{H}: equal to its plain version bit for bit on {tiles.numel()} "
         f"tiles ({int(counts[tiles].sum())} of {n_sorted} slots, the longest span "
         f"{int(counts.max())}); {n_pairs} pairs evaluated, {n_live} contributing")
+    # the bound counts the work the function needs given the early reject;
+    # `every_pair_bound_ms` is the earlier yardstick, the exact path on every
+    # evaluated pair
+    gate_flops = k6_gate_flops(n_exact_pairs, n_eval)
+    every_pair_flops = K6A_FLOP_PER_PAIR * n_pairs
+    fwd_bytes = 4 * (F * n_sorted + T + 1 + n_images * H * W * (D + 7))
     records.append(kernel_record(
         "rasterize2d_fwd", launches["rasterize2d_fwd"], 0.0,
-        timer(lambda: r2k.rasterize2d_fwd(*k6a), 10), plain_fwd_ms,
-        4 * (F * n_sorted + T + 1 + n_images * H * W * (D + 7)),
-        K6A_FLOP_PER_PAIR * n_pairs + k6a_flop_per_live_pair(D) * n_live))
+        timer(lambda: r2k.rasterize2d_fwd(*k6a), 10), plain_fwd_ms, fwd_bytes,
+        gate_flops + k6a_flop_per_live_pair(D) * n_live))
     records[-1]["plain_on"] = f"{tiles.numel()} of {T} tiles"
+    records[-1]["pairs"] = {"evaluated": n_pairs, "exact": n_exact_pairs, "contributing": n_live,
+                            "unsound": int(unsound.sum())}
+    records[-1]["every_pair_bound_ms"] = bound_ms(
+        fwd_bytes, every_pair_flops + k6a_flop_per_live_pair(D) * n_live)
 
     # K6b: the live pairs, the rows on the sampled tiles, the median's slot
     live = torch.zeros(T, dtype=torch.int32, device=dev)
@@ -1447,12 +1491,14 @@ def check_surfel_kernels(tr, args, launches, timer, log):
         f"({'above' if top >= 1 << 24 else 'below'} 2^24 = {1 << 24})")
     del g_med, v_med, per_slot
     release()
+    bwd_bytes = 4 * (2 * F * n_sorted + T + 1 + n_images * H * W * (2 * (D + 5) + 3))
     records.append(kernel_record(
         "rasterize2d_bwd", launches["rasterize2d_bwd"], err6b,
-        timer(lambda: r2k.rasterize2d_bwd(*k6b), 5), plain_bwd_ms,
-        4 * (2 * F * n_sorted + T + 1 + n_images * H * W * (2 * (D + 5) + 3)),
-        K6A_FLOP_PER_PAIR * n_pairs + k6b_flop_per_live_pair(D) * n_live))
+        timer(lambda: r2k.rasterize2d_bwd(*k6b), 5), plain_bwd_ms, bwd_bytes,
+        gate_flops + k6b_flop_per_live_pair(D) * n_live))
     records[-1]["plain_on"] = f"{tiles.numel()} of {T} tiles"
+    records[-1]["every_pair_bound_ms"] = bound_ms(
+        bwd_bytes, every_pair_flops + k6b_flop_per_live_pair(D) * n_live)
     del k6a, k6b, fields, bounds, med
     release()
 
@@ -2107,20 +2153,29 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
 def device_profile(unit_fn, unit_ms: float, log, unit: str, n: int = 3) -> None:
     """A torch.profiler trace of `n` units of work (requests or training
     steps): device time by kernel, and the device's busy and idle share of
-    the unprofiled time of one unit."""
+    the traced units' own span (kernel intervals merged where they overlap,
+    over the host clock from the first unit's start to the last one's end on
+    the card); `unit_ms`, the untraced time of a unit, is logged beside it."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(n):
             unit_fn()
         torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     require(bool(kernels), "the profiler recorded no device time")
     by_name = collections.defaultdict(float)
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n
-    busy = sum(by_name.values())
-    log(json.dumps({f"device_ms_per_{unit}": busy, f"{unit}_ms": unit_ms,
-                    "device_idle_share": 1.0 - busy / unit_ms,
+    busy_us, reach = 0.0, -math.inf
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy_us += max(end - max(start, reach), 0.0)
+        reach = max(reach, end)
+    log(json.dumps({f"device_ms_per_{unit}": sum(by_name.values()),
+                    f"device_busy_ms_per_{unit}": busy_us / 1e3 / n,
+                    f"traced_ms_per_{unit}": span_ms / n, f"{unit}_ms": unit_ms,
+                    "device_idle_share": 1.0 - busy_us / 1e3 / span_ms,
                     f"kernel_launches_per_{unit}": len(kernels) / n}))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(json.dumps({"kernel": name[:100], f"ms_per_{unit}": ms}))
@@ -2149,6 +2204,7 @@ def log_registers(log) -> None:
     """Registers and spills of the kernels redesigned last, from the build's
     own nvcc report, and any spill anywhere."""
     for name, keep in (("segsum", lambda e: True),
+                       ("rasterize2d_fwd", lambda e: re.search(r"ILi(1|4|32)E", e)),
                        ("rasterize2d_bwd", lambda e: re.search(r"ILi(1|4|19|32)E", e))):
         for entry, regs, st, ld in ptxas_summary(_build.ptxas_report(name), keep):
             log(json.dumps({"ptxas": name, "entry": entry[-60:], "registers": regs,

@@ -171,7 +171,7 @@ _SIGNATURES = {
     },
     "rasterize2d_fwd": {
         "gs_rasterize2d_fwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
-                               _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
+                               _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
     },
     "rasterize2d_bwd": {
         "gs_rasterize2d_bwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,

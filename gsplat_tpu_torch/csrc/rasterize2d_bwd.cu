@@ -23,8 +23,9 @@
 // accumulated with atomics.
 //
 // What bounds it on the H100: operations.  Each evaluated pair costs the
-// forward's ~45 operations again (csrc/surfel.cuh: two IEEE divisions and an
-// exp among them); a live pair ~70 + 3(D+3) more for its gradient terms and
+// forward's replay again (csrc/surfel.cuh: ~45 operations with two IEEE
+// divisions and an exp on the exact path, none for a pair in a block that
+// the early reject's mask gates); a live pair ~70 + 3(D+3) more for its gradient terms and
 // one add into each of its 15+D per-slot sums.  Measured on the 2DGS step
 // (PERF.md): the replay alone takes what K6a takes, and the gradient chain
 // of the live pairs, with ~5 of a warp's 32 lanes live, most of the rest.
@@ -35,11 +36,15 @@
 // surfel's edge leaves fewer lanes idle than in a 16x2 strip.  The tile's
 // span is walked in batches of kBatch slots, staged into shared memory with
 // cp.async and double-buffered: the next batch's rows are in flight while
-// this one is evaluated.  For each slot a thread reads the 12 fields of the
-// response once, then replays each of its pixels through
-// gs2d::composite_surfel, exactly as the forward (rasterize2d_fwd.cu)
-// decides gate and stop, and adds each live pixel's terms into its own 15+D
-// partial sums.  A warp with a live lane then reduces those 15+D values
+// this one is evaluated.  Once a batch has landed, one thread per slot
+// computes its mask of the 8x4 pixel blocks where every pair is certainly
+// gated (gs2d::surfel_block_mask, as the forward stages it).  For each slot
+// a thread whose pixels' blocks are not both masked reads the 12 fields of
+// the response once, then replays each of its pixels of an unmasked block
+// through gs2d::composite_surfel, exactly as the forward
+// (rasterize2d_fwd.cu) decides gate and stop, and adds each live pixel's
+// terms into its own 15+D partial sums.  A warp with a live lane then
+// reduces those 15+D values
 // across its lanes by recursive halving (a reduce-scatter: ceil(F/2) +
 // ceil(F/4) + ... shuffles, 21 for F = 19, where one shuffle tree per value
 // took 5F), which leaves each row's warp sum on one lane; that lane writes
@@ -76,8 +81,9 @@ constexpr int kThreads = gs2d::kTile * gs2d::kTile / kPix;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 64;           // slots staged per batch: one live bit each
 constexpr int kPStride = kBatch + 1;  // a warp-sum row in shared memory, padded
-constexpr unsigned kFullMask = 0xffffffffu;
+static_assert(kThreads >= kBatch, "one thread computes each staged slot's block mask");
 constexpr int kGeo = gs2d::kRowColor;  // the response's fields: x, y, u, v, w, opacity
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -160,6 +166,7 @@ rasterize2d_bwd_kernel(const float* __restrict__ fields, long long P,
   float* partial = stage + 2 * F * kBatch;             // [kWarps][F][kPStride]
   unsigned long long* live_bits = (unsigned long long*)(partial + kWarps * F * kPStride);
   float* tot = (float*)(live_bits + kWarps);            // [9][kBatch]: S1, Sx, Sy
+  unsigned* block_mask = (unsigned*)(tot + 9 * kBatch);  // [kBatch] each slot's block mask
 
   const int t = blockIdx.x;
   const int tr = threadIdx.x;
@@ -253,19 +260,32 @@ rasterize2d_bwd_kernel(const float* __restrict__ fields, long long P,
     const int base = start + batch * kBatch;
     const int n = min(kBatch, end - base);
     const float* st = stage + (batch & 1) * F * kBatch;
+    if (tr < n)
+      block_mask[tr] = gs2d::surfel_block_mask(st + tr, kBatch, gs2d::surfel_gate(st + tr, kBatch),
+                                               (float)(tx * kTile), (float)(ty * kTile));
+    __syncthreads();
     unsigned long long warp_live = 0;
     if (!__all_sync(kFullMask, mine_done)) {
       for (int j = 0; j < n; ++j) {
-        float geo[kGeo];  // the response's fields, read once for all kPix pixels
+        const unsigned mask = block_mask[j];
+        bool masked[kPix], need = false;
 #pragma unroll
-        for (int r = 0; r < kGeo; ++r) geo[r] = st[r * kBatch + j];
+        for (int k = 0; k < kPix; ++k) {
+          masked[k] = (mask >> (warp + kWarps * k)) & 1u;
+          need = need || !(done[k] || masked[k]);
+        }
         float acc[F];
 #pragma unroll
         for (int r = 0; r < F; ++r) acc[r] = 0.0f;
         bool live = false;
+        float geo[kGeo];  // the response's fields, read once for all kPix pixels
+        if (need) {
+#pragma unroll
+          for (int r = 0; r < kGeo; ++r) geo[r] = st[r * kBatch + j];
+        }
 #pragma unroll
         for (int k = 0; k < kPix; ++k) {
-          if (done[k]) continue;
+          if (done[k] || masked[k]) continue;  // a masked block: every pair gated
           const bool stop = gs2d::composite_surfel(
               px[k], py[k], geo, 1, T[k], [&](const gs2d::Surfel& s, float next_T) {
                 live = true;
@@ -412,7 +432,7 @@ int launch(const float* fields, long long P, const int* bounds, int tiles_w,
            float* v_slot, int* live_counts, cudaStream_t stream) {
   constexpr int F = 15 + D;
   const size_t smem = sizeof(float) * F * (2 * kBatch + kWarps * kPStride) +
-                      sizeof(unsigned long long) * kWarps + sizeof(float) * 9 * kBatch;
+                      sizeof(unsigned long long) * kWarps + sizeof(float) * 10 * kBatch;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(rasterize2d_bwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

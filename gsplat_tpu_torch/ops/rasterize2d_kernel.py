@@ -145,6 +145,68 @@ def _surfel_batch(fields, starts, counts, tiles, L, tiles_w, tiles_per_image, wi
     )
 
 
+# csrc/surfel.cuh's early reject, in float32: what the kernels gate before
+# the exact path.  Neither plain version uses it (they take the exact path
+# for every pair, which decides the same); the tests hold it to them.
+GATE_MARGIN = 2.0 ** -6  # delta
+GATE_SLACK = 1.0 + 2.0 ** -10
+GATE_FLOOR = 2.0 ** -100
+OP_DEAD = float(torch.tensor(ALPHA_THRESHOLD, dtype=torch.float32) * (1.0 - 2.0 ** -16))
+BLOCK_ENVELOPE = 2.0 ** -19
+
+
+def surfel_gate_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Each slot's gate term g (csrc/surfel.cuh:surfel_gate) from its first
+    12 rows [12+, *S] (x, y, u, v, w, opacity): +inf if a row is not finite,
+    -inf if the opacity is below OP_DEAD, else 2 (ln(255 op) + delta)(1 + s)."""
+    rows = rows[:ROW_COLOR]
+    op = rows[ROW_OP]
+    g = (2.0 * (torch.log(op * 255.0) + GATE_MARGIN)) * GATE_SLACK
+    g = torch.where(op < OP_DEAD, -torch.inf, g)
+    return torch.where(torch.isfinite(rows).all(0), g, torch.inf)
+
+
+def surfel_certainly_gated_plain(rows: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                                 gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """csrc/surfel.cuh's early reject: True for each (pixel, slot) pair whose
+    8x4 block of its 16x16 tile the slot's block mask gates (every pixel of
+    the block).  `rows` [12+, *S] holds each slot's rows as surfel_gate_plain
+    reads them, `px`, `py` the pixel centres, broadcasting against S; `gate`
+    is surfel_gate_plain(rows) if not given.  The fused multiply-adds of the
+    block centre's c are rounded once, through float64."""
+    g = surfel_gate_plain(rows) if gate is None else gate
+    x, y = torch.floor(px), torch.floor(py)
+    P = torch.floor(x / TILE_2D) * TILE_2D + 15.5
+    Q = torch.floor(y / TILE_2D) * TILE_2D + 15.5
+    bx = torch.floor(x / 8.0) * 8.0 + 4.0
+    by = torch.floor(y / 4.0) * 4.0 + 2.0
+    u, v, w = rows[2:5], rows[5:8], rows[8:11]
+    c, reach = [], []
+    for i in range(3):
+        i1, i2 = (i + 1) % 3, (i + 2) % 3
+        A = v[i1] * w[i2] - v[i2] * w[i1]
+        B = w[i1] * u[i2] - w[i2] * u[i1]
+        C = u[i1] * v[i2] - u[i2] * v[i1]
+        a = (v[i1] * w[i2]).abs() + (v[i2] * w[i1]).abs()
+        b = (w[i1] * u[i2]).abs() + (w[i2] * u[i1]).abs()
+        k = (u[i1] * v[i2]).abs() + (u[i2] * v[i1]).abs()
+        S = ((P * w[i1].abs() + u[i1].abs()) * (Q * w[i2].abs() + v[i2].abs())
+             + (P * w[i2].abs() + u[i2].abs()) * (Q * w[i1].abs() + v[i1].abs()))
+        e = BLOCK_ENVELOPE * (P * a + Q * b + k + S)
+        reach.append((3.5 * a + 1.5 * b) + e)
+        inner = (by.double() * B.double() + C.double()).float()
+        c.append((bx.double() * A.double() + inner.double()).float())
+    lx = torch.clamp(c[0].abs() - reach[0], min=0.0)
+    ly = torch.clamp(c[1].abs() - reach[1], min=0.0)
+    hz = c[2].abs() + reach[2]
+    lhs = lx * lx + ly * ly
+    q = g * (hz * hz)
+    dX = torch.clamp((rows[0] - bx).abs() - 3.5, min=0.0)
+    dY = torch.clamp((rows[1] - by).abs() - 1.5, min=0.0)
+    s2 = 2.0 * (dX * dX + dY * dY)
+    return (g == -torch.inf) | ((s2 > g * GATE_SLACK) & (q >= GATE_FLOOR) & (lhs > q))
+
+
 def _batches(bounds, n_tiles, tiles, budget):
     """(starts, counts, tile ids, longest span) per batch of the tiles
     `tiles` (all when None) whose padded work fits `budget` elements."""
@@ -223,35 +285,42 @@ def rasterize2d_fwd(
     width: int,
     height: int,
     pair_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only
-    eval_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only, with pair_counts
+    eval_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only
+    exact_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only
+    unsound_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Composite every 16x16 tile of surfels front to back.
 
     Returns (out [I, H, W, D+5] f32: colours, normals, distortion, median
     depth; T_final [I, H, W] f32; median slot [I, H, W] i32).  On the card,
     `pair_counts` receives each tile's contributing (pixel, slot) pairs,
-    which the backward's live pairs must equal, and `eval_counts` the pairs
-    it evaluated.
+    which the backward's live pairs must equal, `eval_counts` the pairs it
+    evaluated, `exact_counts` those of them that took the exact path (the
+    early reject's block masks gated the rest), and `unsound_counts` the
+    masked pairs that the exact path, run on them too, would not have gated
+    (0 unless the reject's margin is wrong).  Any counter makes the kernel
+    count.
     """
     D, n_tiles = _check_args("rasterize2d_fwd", fields, bounds, n_images, tiles_w, tiles_h)
+    counters = (pair_counts, eval_counts, exact_counts, unsound_counts)
     if not check_kernel_device("rasterize2d_fwd", fields, bounds):
-        if pair_counts is not None or eval_counts is not None:
-            raise ValueError("pair_counts and eval_counts are filled by the CUDA kernel only")
+        if any(c is not None for c in counters):
+            raise ValueError("pair_counts, eval_counts, exact_counts and unsound_counts are "
+                             "filled by the CUDA kernel only")
         return rasterize2d_fwd_plain(fields, bounds, n_images, tiles_w, tiles_h, width, height)
     lib = _build.load("rasterize2d_fwd")
     dev = fields.device
     out = torch.empty((n_images, height, width, D + 5), dtype=torch.float32, device=dev)
     out_t = torch.empty((n_images, height, width), dtype=torch.float32, device=dev)
     med_slot = torch.empty((n_images, height, width), dtype=torch.int32, device=dev)
-    if eval_counts is not None and pair_counts is None:
-        raise ValueError("eval_counts comes with pair_counts")
-    if pair_counts is not None and eval_counts is None:
-        eval_counts = torch.empty_like(pair_counts)
+    if any(c is not None for c in counters):
+        counters = tuple(torch.empty(n_tiles, dtype=torch.int32, device=dev) if c is None else c
+                         for c in counters)
     code = lib.gs_rasterize2d_fwd(
         fields.data_ptr(), fields.shape[1], bounds.contiguous().data_ptr(), D, tiles_w,
         tiles_w * tiles_h, width, height, n_tiles, out.data_ptr(), out_t.data_ptr(),
-        med_slot.data_ptr(), _counts_ptr(pair_counts, n_tiles, dev),
-        _counts_ptr(eval_counts, n_tiles, dev), _build.stream_of(out),
+        med_slot.data_ptr(), *(_counts_ptr(c, n_tiles, dev) for c in counters),
+        _build.stream_of(out),
     )
     _build.check(lib, code, "rasterize2d_fwd")
     rasterize2d_fwd.launches += 1

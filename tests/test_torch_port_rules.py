@@ -687,3 +687,57 @@ def test_surfel_backward_stress_cases_on_the_card(case):
     else:
         n2d, n3d, n_clamped = _branch_counts(fields, bounds, geo).tolist()
         assert n2d > 0 and n3d > 0 and n_clamped > 0, (n2d, n3d, n_clamped)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["seeded", "opacity_edge", "gate_edge", "reject_edge",
+                                  "edge_on", "scales", "clamp", "nonfinite_dead"])
+def test_surfel_gate_boundary_on_the_card(case):
+    """The early reject of csrc/surfel.cuh on the boundary scenes of
+    tests/test_torch_surfel_gate.py (built on the CPU, then moved): K6a's
+    counting build, which also runs the exact path on every rejected pair,
+    finds none that the exact path keeps; K6a equals its plain version bit
+    for bit, and its timed build equals its counting build; K6b's live pairs
+    equal K6a's contributing pairs, and each of its rows is within 1e-4 of
+    that row's largest entry of its plain version.  On a dead slot with a
+    NaN or an infinity among its rows, which no live pair reaches, both
+    multiply zero sums by those rows: K6b equals the plain version wherever
+    that is finite, and its opacity and channel rows are 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import rasterize2d_kernel as t2
+    from test_torch_surfel_gate import boundary_scene
+
+    dev = torch.device("cuda")
+    fields_cpu, bounds_cpu, geo = boundary_scene(case)
+    fields, bounds = fields_cpu.to(dev), bounds_cpu.to(dev)
+    n_tiles = bounds.shape[0] - 1
+    kept, n_eval, n_exact, unsound = (torch.empty(n_tiles, dtype=torch.int32, device=dev)
+                                      for _ in range(4))
+    fwd = t2.rasterize2d_fwd(fields, bounds, *geo, pair_counts=kept, eval_counts=n_eval,
+                             exact_counts=n_exact, unsound_counts=unsound)
+    plain = t2.rasterize2d_fwd_plain(fields, bounds, *geo)
+    timed = t2.rasterize2d_fwd(fields, bounds, *geo)
+    torch.cuda.synchronize()
+    assert int(unsound.sum()) == 0, f"{int(unsound.sum())} rejected pairs the exact path keeps"
+    assert 0 < int(n_exact.sum()) < int(n_eval.sum())
+    assert all(torch.equal(a, b) for a, b in zip(fwd, plain)), "K6a != its plain version"
+    assert all(torch.equal(a, b) for a, b in zip(fwd, timed)), "the timed build differs"
+
+    out, t_fin, med = fwd
+    g = torch.Generator(device=dev).manual_seed(2)
+    v_pix = torch.randn(out.shape, generator=g, device=dev)
+    v_t = torch.randn(t_fin.shape, generator=g, device=dev)
+    live = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    bargs = (fields, bounds, *geo, v_pix, v_t, out, t_fin, med)
+    v_slot = t2.rasterize2d_bwd(*bargs, live_counts=live)
+    v_slot_p, n_live_p = t2.rasterize2d_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(live, kept), "the backward's live pairs differ from the forward's"
+    assert int(live.sum()) == n_live_p > 0
+    finite = torch.isfinite(fields[: t2.ROW_COLOR]).all(0)
+    dead, dead_p = v_slot[:, ~finite], v_slot_p[:, ~finite]
+    assert torch.equal(dead[torch.isfinite(dead_p)], dead_p[torch.isfinite(dead_p)])
+    assert (dead[t2.ROW_OP:] == 0).all()
+    for row, row_p in zip(v_slot[:, finite], v_slot_p[:, finite]):
+        assert (row - row_p).abs().max().item() <= 1e-4 * row_p.abs().max().item()
