@@ -9,8 +9,8 @@ Run from the repository root, on a machine with a CUDA card:
 Phases:
   1. print the card's name and power limit (nvidia-smi), build the kernels
      from csrc/ (one nvcc per source, in parallel) and print the seconds,
-     then the registers and spills nvcc reports for K5, K6a and K6b (and
-     any spill of another kernel);
+     then the registers and spills nvcc reports for K2, K5, K6a, K6b and
+     K9 (and any spill of another kernel);
   2. serving: a synthetic scene of the benchmark's size (2,794,625
      gaussians, SH degree 3, 25 grid cells of 111,785 points, made from a
      fixed seed) goes through splats_from_numpy -> GaussianScene ->
@@ -74,10 +74,16 @@ Phases:
      and overflow, the gaussians each refine adds and prunes (growth must
      happen, and the first refine must prune at least the planted surfels)
      and the held-out PSNR are printed;
- 11. 2DGS kernels, on one more training step's own inputs at 3840x2160: K5
+ 11. 2DGS kernels, on one more training step's own inputs at 3840x2160 (the
+     step's peak device memory is printed for each interval between K6a,
+     K6b and the scatter to emission order): K5
      bit for bit (and on a rerun), timed beside torch.segment_reduce (the
-     `kernels` line files these under K5's `2dgs_check`); K8
-     and K9 equal to their plain versions bit for bit; K6a bit for bit on the
+     `kernels` line files these under K5's `2dgs_check`); K9 (the gather of
+     each sorted slot's fields from its gaussian's record) and K8 in the
+     path's mode (no field table) equal to their plain versions bit for
+     bit, and to the route they replace (K8's full mode, then align_rows
+     through the sort), which is held to its plain versions and timed too
+     (K8's `full_mode`, K9's `align_rows`); K6a bit for bit on the
      tiles with the longest spans and a seeded sample of the others (the
      plain replay of every tile at 4k would take hours), with its
      contributing pairs equal to K6b's live pairs in every tile, and no
@@ -88,7 +94,8 @@ Phases:
      1e-4 of each row's largest entry on the same tiles; with only the
      median's cotangent set, the depth row of K6b's output equal to the
      count of pixels whose median each slot is; the largest sorted position
-     against 2^24.  Each kernel timed, K9 beside torch.index_select.
+     against 2^24.  Each kernel timed, K9 beside torch.index_select of the
+     same records.
  12. 3DGUT: the same scene's activated parameters render one 3840x2160 view
      through rasterization(with_ut=True, with_eval3d=True) on a pinhole with
      OpenCV radial distortion (GUT_RADIAL), RGB-Ed and normals, so that
@@ -100,7 +107,8 @@ Phases:
      peak memory; the image, the hit distances and every gradient must be
      finite, and the gradients nonzero.  Then 3 more are timed whole and
      traced;
- 13. eval3d kernels, on one more render's own inputs: K7a bit for bit on the
+ 13. eval3d kernels, on one more render's own inputs: K9 bit for bit and
+     timed (K9's `3dgut_check`); K7a bit for bit on the
      tiles with the longest spans and a seeded sample of the others, its
      contributing pairs equal to K7b's live pairs in every tile; K7b within
      1e-5 of each row's largest entry on the same tiles (the per-pixel ray
@@ -116,9 +124,12 @@ Phases:
      loss must fall.  Then 3 more steps are timed whole and traced;
  15. lidar kernels, on one more AV step's lidar render (the hit channel
      without normals, D = 2, lidar rays): the checks of phase 13 on every
-     tile of the range image.  The `kernels` line keeps the 3DGUT shapes'
-     numbers for K7a and K7b, the larger error of the two checks, and the
-     lidar's under `av_check`.
+     tile of the range image (K9's `av_check`); and K2 (float32) on the same
+     step's 3 camera renders, against its plain version on sampled tiles
+     as in phase 8, timed: the `kernels` line's K2 record is this one, its
+     path's, with the 4k training step's numbers under `4k_check`.  The
+     `kernels` line keeps the 3DGUT shapes' numbers for K7a and K7b, the
+     larger error of the two checks, and the lidar's under `av_check`.
 It prints one `kernels` JSON line (14 kernels, each with its launches on
 every path and `launches` on its own: MAIN_PATH) and, last, the `ok` JSON
 line; any failure exits non-zero without it.  The script never falls back
@@ -194,7 +205,7 @@ KERNELS = {
     "rasterize_bwd": ("csrc/rasterize_bwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:475"),
     "segment_rowsum": ("csrc/segsum.cu", "gsplat_tpu/ops/segsum_pallas.py:38"),
     "expand_emission_aabb": ("csrc/expand.cu", "gsplat_tpu/ops/gather_pallas.py:120"),
-    "align_rows": ("csrc/align.cu", "gsplat_tpu/ops/gather_pallas.py:274"),
+    "gather_records": ("csrc/align.cu", "gsplat_tpu/ops/gather_pallas.py:274"),
     "rasterize2d_fwd": ("csrc/rasterize2d_fwd.cu", "gsplat_tpu/ops/rasterize2d_pallas.py:92"),
     "rasterize2d_bwd": ("csrc/rasterize2d_bwd.cu", "gsplat_tpu/ops/rasterize2d_pallas.py:213"),
     "rasterize_eval3d_fwd": ("csrc/rasterize_eval3d_fwd.cu",
@@ -215,6 +226,7 @@ COUNTERS = {"expand_rows": (gk.expand_rows, "launches"),
             "rasterize_bwd": (rk.rasterize_bwd, "launches"),
             "segment_rowsum": (sk.segment_rowsum, "launches"),
             "expand_emission_aabb": (gk.expand_emission_aabb, "launches"),
+            "gather_records": (gk.gather_records, "launches"),
             "align_rows": (gk.align_rows, "launches"),
             "rasterize2d_fwd": (r2k.rasterize2d_fwd, "launches"),
             "rasterize2d_bwd": (r2k.rasterize2d_bwd, "launches"),
@@ -241,7 +253,7 @@ def read_launches() -> dict:
 EXACT_RENDER_KERNELS = ("expand_rows", "expand_emission", "rasterize_fwd")
 SERVING_KERNELS = ("expand_rows", "expand_emission_packed", "rasterize_fwd_packed")
 TRAINING_KERNELS = SERVING_KERNELS + ("rasterize_bwd_packed", "segment_rowsum")
-SURFEL_KERNELS = ("expand_emission_aabb", "align_rows", "rasterize2d_fwd", "rasterize2d_bwd",
+SURFEL_KERNELS = ("expand_emission_aabb", "gather_records", "rasterize2d_fwd", "rasterize2d_bwd",
                   "segment_rowsum")
 SURFEL_STEPS = 9
 # the default strategy's schedule, cut so that 9 steps refine (at steps 3
@@ -260,7 +272,7 @@ K6A_FLOP_PER_PAIR = 42  # the exact path's surfel response per (pixel, slot), cs
 # multiply-adds, 12 operations) and 25 more to test it
 K6A_FLOP_PER_SLOT_MASK = 17 + 3 * 39 + 1 + 8 * (2 + 12 + 23)
 PLAIN_TILES = (16, 112)  # K6a, K6b, K7a, K7b plain: the longest spans, then a seeded sample
-EVAL3D_KERNELS = ("expand_emission_aabb", "align_rows", "rasterize_eval3d_fwd",
+EVAL3D_KERNELS = ("expand_emission_aabb", "gather_records", "rasterize_eval3d_fwd",
                   "rasterize_eval3d_bwd", "segment_rowsum")
 # the 3DGUT phase: one 3840x2160 view of the grid-5 scene through a pinhole
 # with OpenCV radial distortion (k1, k2, k3), every optional eval3d row live
@@ -636,6 +648,96 @@ def check_bwd_kernel(args, what: str, log, tol: float = 1e-4, tiles=None, **mode
     log(f"rasterize_bwd {what}: max error {worst:.3g} of the row's largest entry{on}, "
         f"{n_live} live pairs, the plain version {plain_ms:.1f} ms")
     return err, n_live, plain_ms
+
+
+def stage_record(ms, plain_ms, nbytes, nops, library_ms=None) -> dict:
+    """The numbers of a kernel record for another mode or input of a kernel
+    whose record is filed elsewhere (K8's full mode, K9's field-major
+    interface, a kernel on another path's inputs)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_FLOPS * 1e3
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+
+
+def gather_work(records, flat, order, n_live):
+    """K9's bytes on its arguments: the output written once, order and flat
+    read once at each live sorted position, and each gaussian record that a
+    live slot names read once (R floats); and the count of those records."""
+    n = int(n_live)
+    n_records = int(torch.unique(flat[order[:n]]).numel())
+    R = records.shape[1]
+    return 4 * R * order.shape[0] + 12 * n + 4 * R * n_records, n_records
+
+
+@torch.no_grad()
+def check_gather_records(args, launches, timer, log, what: str, expect=None):
+    """K9 on a path's own arguments (records, flat, order, n_live): equal to
+    its plain version bit for bit, and to `expect` (the path's own sorted
+    fields) if given; timed, with torch.index_select of the same records
+    through the composed index beside it (one PyTorch call of the gather,
+    gaussian-major).  Each output is released once compared (at 4k each is
+    ~9 GiB).  Returns its kernel record."""
+    records, flat, order, n_live = args
+    got = gk.gather_records(*args)
+    if expect is None:
+        expect, got = got, None
+    else:
+        require(torch.equal(got.view(torch.int32), expect.view(torch.int32)),
+                f"gather_records ({what}): a rerun differs from the path's")
+        del got
+    want = gk.gather_records_plain(*args)
+    require(torch.equal(want.view(torch.int32), expect.view(torch.int32)),
+            f"gather_records ({what}) != plain")
+    del want, expect
+    n = int(n_live)
+    idx = flat[order[:n]].long()
+    library_ms = timer(lambda: torch.index_select(records, 0, idx), 10)
+    del idx
+    nbytes, n_records = gather_work(*args)
+    rec = kernel_record("gather_records", launches["gather_records"], 0.0,
+                        timer(lambda: gk.gather_records(*args), 10),
+                        timer(lambda: gk.gather_records_plain(*args), 1), nbytes, 0, library_ms)
+    log(f"gather_records ({what}): {records.shape[1]} fields (row stride {records.stride(0)}) of "
+        f"{n_records} gaussians into {n} live of {order.shape[0]} sorted slots, equal to its "
+        f"plain version bit for bit; {rec['ms']:.4f} ms, torch.index_select "
+        f"{library_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms")
+    return rec
+
+
+class PeakMarks:
+    """While installed, each call of the named functions closes an interval
+    of a step and starts the next: the peak device memory of the interval
+    is kept under "<where it started> to <the function's name>".  `done`
+    closes the last one (until the step's end) and logs them all."""
+
+    def __init__(self, on_card: bool, *targets):
+        self.on_card, self.peaks, self.saved = on_card, {}, []
+        for owner, name in targets:
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(name, fn))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        self.since = "step start"
+
+    def _mark(self, name):
+        if self.on_card:
+            self.peaks[f"{self.since} to {name}"] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+        self.since = name
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            self._mark(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    def done(self, log, key: str):
+        self._mark("step end")
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        if self.on_card:
+            log(json.dumps({key: self.peaks}))
 
 
 class Probe:
@@ -1036,17 +1138,18 @@ def probe_training_steps(tr, targets, log):
     return probes, (vms, Ks, targets)
 
 
-def k2_work(args, modes, n_live, W, H):
+def k2_work(args, modes, n_live):
     """K2's bytes (each slot row read once, each gradient row written once,
     four pixel planes read) and operations (K1's replay of every evaluated
     pair, the gradient terms of every live pair) on `args`."""
     fields, bounds = args[0], args[1]
+    n_images, W, H = args[2], args[6], args[7]
     n_sorted = int(bounds[-1])
     D = modes["n_channels"] if modes.get("packed") else fields.shape[0] - 6
     out_rows = bf16pair.grad_pack_rows(D) if modes.get("pack_grads") else 6 + D
     pairs = evaluated_pairs(*args[:8], n_channels=D if modes.get("packed") else None)
     nbytes = 4 * ((fields.shape[0] + out_rows) * n_sorted + bounds.shape[0]
-                  + 2 * W * H * (D + 1))
+                  + 2 * n_images * W * H * (D + 1))
     return pairs, nbytes, K1_FLOP_PER_PAIR * pairs + k2_flop_per_live_pair(D) * n_live
 
 
@@ -1118,8 +1221,8 @@ def check_and_time_training_kernels(tr, probes, exact_probes, launches, serving_
                                             log)
     got, e5, k5_plain_ms = check_segment_rowsum(k5_args, "training step", timer, log)
 
-    pairs_p, k2p_bytes, k2p_ops = k2_work(k2p_args, k2p_kw, n_live_p, W, H)
-    pairs, k2_bytes, k2_ops = k2_work(k2_args, {}, n_live, W, H)
+    pairs_p, k2p_bytes, k2p_ops = k2_work(k2p_args, k2p_kw, n_live_p)
+    pairs, k2_bytes, k2_ops = k2_work(k2_args, {}, n_live)
     data, seg_bounds = k5_args
     n_seg = seg_bounds.shape[0] - 1
     n_summed = int(seg_bounds[-1])
@@ -1309,12 +1412,15 @@ def surfel_kernels(tr, targets, launches, timer, log):
     dev = tr.device
     stages = {name: Probe(owner, name, on_card) for owner, name in (
         (r2d, "make_emission_plan"), (rz, "expand_emission_aabb"), (r2d, "expand_sort_align"),
-        (rz, "align_rows"), (r2d, "rasterize2d_fwd"), (r2d, "rasterize2d_bwd"),
+        (rz, "gather_records"), (r2d, "rasterize2d_fwd"), (r2d, "rasterize2d_bwd"),
         (r2d, "reduce_slot_grads"), (rz, "segment_rowsum"),
     )}
     vm = torch.from_numpy(tr.viewmats[:1]).to(dev)
     Kt = torch.from_numpy(tr.Ks[:1]).to(dev)
+    marks = PeakMarks(on_card, (r2d, "rasterize2d_fwd"), (r2d, "rasterize2d_bwd"),
+                      (r2d, "reduce_slot_grads"))
     out = tr.train_step(tr.params, tr.alive, vm, Kt, targets[:1], 3, step=tr.cfg.max_steps)
+    marks.done(log, "train2dgs_peak_gib")
     require(not bool(out[5]), "2dgs kernel step: isect_overflow")
     del out
     for p in stages.values():
@@ -1324,7 +1430,7 @@ def surfel_kernels(tr, targets, launches, timer, log):
     # the kernels' own arguments only: reduce_slot_grads' would hold the
     # step's slot gradients (~10 GB at 4k) through the checks
     args = {name: stages[name].first_args for name in (
-        "segment_rowsum", "align_rows", "expand_emission_aabb", "rasterize2d_fwd",
+        "segment_rowsum", "gather_records", "expand_emission_aabb", "rasterize2d_fwd",
         "rasterize2d_bwd")}
     del stages
     if on_card:
@@ -1363,43 +1469,30 @@ def check_surfel_kernels(tr, args, launches, timer, log):
 
     records = [k5_2dgs]  # run() files it under the 3DGS step's K5 record
 
-    # K9: the gather into sorted order, exact, row by row; torch.index_select beside it
-    rows, src = args.pop("align_rows")
-    got = gk.align_rows(rows, src)
-    require(all(torch.equal(got[f], gk.align_rows_plain(rows[f : f + 1], src)[0])
-                for f in range(rows.shape[0])), "align_rows != plain")
-    idx = src.long()
-    require(bool((idx >= 0).all()) and torch.equal(got, torch.index_select(rows, 1, idx)),
-            "align_rows != torch.index_select")
-    del got
+    # K9 and K8 in the path's modes, exact (K9 also equal to the step's own
+    # sorted fields); the route they replace follows the K6 checks
+    k9, k8 = args.pop("gather_records"), args.pop("expand_emission_aabb")
+    rec9 = check_gather_records(k9, launches, timer, log, "2DGS training step",
+                                expect=args["rasterize2d_fwd"][0])
     release()
-    F9, A = rows.shape[0], src.shape[0]
-    records.append(kernel_record(
-        "align_rows", launches["align_rows"], 0.0, timer(lambda: gk.align_rows(rows, src), 10),
-        timer(lambda: gk.align_rows_plain(rows, src), 1),
-        4 * (rows.numel() + A + F9 * A), 0,
-        timer(lambda: torch.index_select(rows, 1, idx), 10)))
-    log(f"align_rows: {F9} rows x {A} slots, equal to its plain version and to "
-        f"torch.index_select bit for bit")
-    del rows, src, idx
-    release()
-
-    # K8: the emission, exact
-    k8 = args.pop("expand_emission_aabb")
     got = gk.expand_emission_aabb(*k8)
     want = gk.expand_emission_aabb_plain(*k8)
-    require(all(torch.equal(x, y) for x, y in zip(got, want)), "expand_emission_aabb != plain")
+    require(got[3] is None and want[3] is None
+            and all(torch.equal(x, y) for x, y in zip(got[:3], want[:3])),
+            "expand_emission_aabb (no table) != plain")
+    require(torch.equal(got[2], k9[1]), "expand_emission_aabb: the ids differ from the step's")
     n_live_slots = int((got[0] < k8[8]).sum())
     del got, want
     release()
-    E, R, cap = k8[0].shape[0], k8[3].shape[0], k8[5]
+    E, cap = k8[0].shape[0], k8[5]
+    k8_ms = timer(lambda: gk.expand_emission_aabb(*k8), 10)
     records.append(kernel_record(
-        "expand_emission_aabb", launches["expand_emission_aabb"], 0.0,
-        timer(lambda: gk.expand_emission_aabb(*k8), 10),
-        timer(lambda: gk.expand_emission_aabb_plain(*k8), 1),
-        4 * (E * (6 + R) + 1 + cap * (3 + R)), 0))
+        "expand_emission_aabb", launches["expand_emission_aabb"], 0.0, k8_ms,
+        timer(lambda: gk.expand_emission_aabb_plain(*k8), 1), 4 * (6 * E + 1 + 3 * cap), 0))
+    rec8 = records[-1]
+    records.append(rec9)
     log(f"expand_emission_aabb: {E} surfels, {n_live_slots} live slots of {cap}, equal to its "
-        f"plain version bit for bit")
+        f"plain version bit for bit without its table")
     # K6a: bit for bit on the longest spans and a seeded sample of tiles
     k6a, k6b = args.pop("rasterize2d_fwd"), args.pop("rasterize2d_bwd")
     fields, bounds = k6a[0], k6a[1]
@@ -1502,6 +1595,52 @@ def check_surfel_kernels(tr, args, launches, timer, log):
     del k6a, k6b, fields, bounds, med
     release()
 
+    # The route K8 and K9 replace, on the same inputs: K8's full mode (the
+    # fields copied in emission order) and align_rows through the sort give
+    # K9's output bit for bit; each is held to its plain version and timed.
+    gathered = gk.gather_records(*k9)
+    records9, order9 = k9[0], k9[2]
+    full_args = (*k8[:3], records9.t().contiguous(), *k8[4:])
+    full = gk.expand_emission_aabb(*full_args)
+    bare = gk.expand_emission_aabb(*k8)
+    require(all(torch.equal(x, y) for x, y in zip(full[:3], bare[:3])),
+            "expand_emission_aabb: the full mode's keys, depths or ids differ")
+    del bare
+    rows, src = full[3], order9.to(torch.int32)
+    aligned = gk.align_rows(rows, src)
+    require(torch.equal(aligned.view(torch.int32), gathered.view(torch.int32)),
+            "gather_records differs from the field-major route (K8's copy, align_rows)")
+    del gathered
+    idx = src.long()
+    require(bool((idx >= 0).all()) and all(
+        torch.equal(aligned[f], gk.align_rows_plain(rows[f : f + 1], src)[0])
+        and torch.equal(aligned[f], torch.index_select(rows[f], 0, idx))
+        for f in range(rows.shape[0])), "align_rows != plain or torch.index_select")
+    del aligned
+    release()
+    F9, A, R = rows.shape[0], src.shape[0], records9.shape[1]
+    k9_old_ms = timer(lambda: gk.align_rows(rows, src), 10)
+    rec9["align_rows"] = stage_record(
+        k9_old_ms, timer(lambda: gk.align_rows_plain(rows, src), 1),
+        4 * (rows.numel() + A + F9 * A), 0, timer(lambda: torch.index_select(rows, 1, idx), 5))
+    del rows, src, idx, full
+    release()
+    want = gk.expand_emission_aabb_plain(*full_args)
+    got = gk.expand_emission_aabb(*full_args)
+    require(all(torch.equal(x, y) for x, y in zip(got, want)),
+            "expand_emission_aabb (full mode) != plain")
+    del got, want
+    release()
+    k8_full_ms = timer(lambda: gk.expand_emission_aabb(*full_args), 10)
+    rec8["full_mode"] = stage_record(
+        k8_full_ms, timer(lambda: gk.expand_emission_aabb_plain(*full_args), 1),
+        4 * (E * (6 + R) + 1 + cap * (3 + R)), 0)
+    log(f"gather_records: equal bit for bit to the field-major route, K8's full mode then "
+        f"align_rows ({F9} rows x {A} slots; each equal to its plain version, align_rows to "
+        f"torch.index_select); the path's emission and gather {rec8['ms'] + rec9['ms']:.3f} ms, "
+        f"the field-major route's {k8_full_ms + k9_old_ms:.3f} ms")
+    del full_args, k8, k9, records9, order9
+    release()
     return records
 
 
@@ -1531,8 +1670,8 @@ def gut_params(raw, dev):
 
 def gut_phases(dev, raw, viewmats, K, wh, timer, log):
     """Phases 12 and 13: the 3DGUT render and gradient at full width, then
-    K7a and K7b against their plain versions on its own inputs.  Returns
-    (launch counts of the render, the K7a and K7b records)."""
+    K9, K7a and K7b against their plain versions on its own inputs.  Returns
+    (launch counts of the render, the K7a and K7b records, K9's record)."""
     W, H = wh
     on_card = dev.type == "cuda"
     params = gut_params(raw, dev)
@@ -1598,15 +1737,18 @@ def gut_phases(dev, raw, viewmats, K, wh, timer, log):
     # the kernels' own arguments, from one more render and backward
     probes = {name: Probe(r3d, name, on_card) for name in ("rasterize_eval3d_fwd",
                                                           "rasterize_eval3d_bwd")}
+    probes["gather_records"] = Probe(rz, "gather_records", on_card)
     render_and_backward()
     for p in probes.values():
         p.restore()
     args = {name: p.first_args for name, p in probes.items()}
     del probes
+    rec9 = check_gather_records(args.pop("gather_records"), launches, timer, log,
+                                "3DGUT render")
     if on_card:
         torch.cuda.empty_cache()
     log_memory(dev, "before the eval3d kernel checks", log)
-    return launches, check_eval3d_kernels(dev, args, launches, timer, log, "3DGUT render")
+    return launches, check_eval3d_kernels(dev, args, launches, timer, log, "3DGUT render"), rec9
 
 
 def sync(dev):
@@ -1765,10 +1907,10 @@ def street_scene(dev):
 
 
 def av_phase(dev, timer, log):
-    """Phases 14 and 15: the AV trainer at full width, then K7a and K7b
-    against their plain versions on one step's lidar render.  Returns (the
-    launch counts of train(), the K7a and K7b records of the lidar's
-    shapes)."""
+    """Phases 14 and 15: the AV trainer at full width, then K9, K7a and K7b
+    against their plain versions on one step's lidar render and K2 on its
+    cameras'.  Returns (the launch counts of train(), the K7a and K7b
+    records of the lidar's shapes, K9's and K2's records)."""
     on_card = dev.type == "cuda"
     n, steps = AV_N, AV_STEPS
     t0 = time.perf_counter()
@@ -1846,19 +1988,37 @@ def av_phase(dev, timer, log):
         log(json.dumps({"av_stage": "whole step", "ms": step_ms}))
         device_profile(one_step, step_ms, log, "av_step")
 
-    # the lidar render's kernels (hit channel, no normals, D = 2) on every tile
+    # the lidar render's kernels (hit channel, no normals, D = 2) on every
+    # tile; K9 on the lidar's slots; K2 on the cameras' (float32)
     probes = {name: Probe(r3d, name, on_card) for name in ("rasterize_eval3d_fwd",
                                                           "rasterize_eval3d_bwd")}
+    probes.update({name: Probe(rz, name, on_card) for name in ("gather_records",
+                                                              "rasterize_bwd")})
     step_fn(first_inputs[0])
     for p in probes.values():
         p.restore()
+    k2_kw = probes["rasterize_bwd"].first_kw
     args = {name: p.first_args for name, p in probes.items()}
     del probes
     sync(dev)
+    require(not k2_kw.get("packed") and not k2_kw.get("pack_grads"),
+            f"the AV cameras' K2 ran in the mode {k2_kw}, not float32")
+    rec9 = check_gather_records(args.pop("gather_records"), launches, timer, log,
+                                "AV lidar render")
+    k2 = args.pop("rasterize_bwd")
+    counts = (k2[1][1:] - k2[1][:-1]).long()
+    tiles, _ = sampled_tiles(counts, k2[2], k2[4], k2[5], k2[6], k2[7], dev)
+    e2, n_live, plain_ms = check_bwd_kernel(
+        k2, f"tile {k2[3]}, {k2[2]} cameras at {k2[6]}x{k2[7]} (AV step)", log, tiles=tiles)
+    _, k2_bytes, k2_ops = k2_work(k2, {}, n_live)
+    rec2 = kernel_record("rasterize_bwd", launches["rasterize_bwd"], e2,
+                         timer(lambda: rk.rasterize_bwd(*k2), 10), plain_ms, k2_bytes, k2_ops)
+    rec2["plain_on"] = f"{tiles.numel()} of {counts.shape[0]} tiles"
+    del k2
     records = check_eval3d_kernels(dev, args, launches, timer, log, "AV lidar render",
                                    every_tile=True)
     log("av eval3d kernels " + json.dumps(records))
-    return launches, records
+    return launches, records, rec9, rec2
 
 
 class Serving:
@@ -2122,15 +2282,28 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         dev, raw, viewmats, K, (W, H), timer, log)
 
     # 3DGUT: the same scene through a distorted pinhole, evaluated along rays.
-    gut_launches, gut_records = gut_phases(dev, raw, viewmats, K, (W, H), timer, log)
+    gut_launches, gut_records, gut_k9 = gut_phases(dev, raw, viewmats, K, (W, H), timer, log)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     # The AV trainer: cameras and a spinning lidar on a street scene.
-    av_launches, av_records = av_phase(dev, timer, log)
+    av_launches, av_records, av_k9, av_k2 = av_phase(dev, timer, log)
     for rec, av_rec in zip(gut_records, av_records):
         rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
         rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                    "bound_by", "plain_on")}
+    # K9's record is the 2DGS step's; K2's (float32) the AV cameras', its
+    # path, with the 4k exact training step's numbers beside it
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for rec in surfel_records:
+        if rec["name"] == "gather_records":
+            rec["3dgut_check"] = {k: gut_k9[k] for k in keys}
+            rec["av_check"] = {k: av_k9[k] for k in keys}
+    for i, rec in enumerate(train_records):
+        if rec["name"] == "rasterize_bwd":
+            av_k2["4k_check"] = {k: rec[k] for k in keys + ("bytes_bound_ms",
+                                                             "operations_bound_ms")}
+            av_k2["max_abs_err"] = max(av_k2["max_abs_err"], rec["max_abs_err"])
+            train_records[i] = av_k2
     k5_2dgs = surfel_records.pop(0)
     require(k5_2dgs["name"] == "segment_rowsum", "the 2DGS step's K5 record is missing")
     for rec in train_records:
@@ -2204,6 +2377,8 @@ def log_registers(log) -> None:
     """Registers and spills of the kernels redesigned last, from the build's
     own nvcc report, and any spill anywhere."""
     for name, keep in (("segsum", lambda e: True),
+                       ("rasterize_bwd", lambda e: re.search(r"ILi(3|32)E", e)),
+                       ("align", lambda e: True),
                        ("rasterize2d_fwd", lambda e: re.search(r"ILi(1|4|32)E", e)),
                        ("rasterize2d_bwd", lambda e: re.search(r"ILi(1|4|19|32)E", e))):
         for entry, regs, st, ld in ptxas_summary(_build.ptxas_report(name), keep):

@@ -152,7 +152,7 @@ _SIGNATURES = {
         "gs_expand_emission": [_VOID, _LL, _VOID, _LL, _INT, _VOID, _LL, _INT,
                                _INT, _INT, _INT, _INT, _VOID, _VOID, _VOID],
         "gs_expand_aabb": [_VOID, _VOID, _LL, _VOID, _VOID, _INT, _VOID, _LL, _INT, _INT,
-                           _INT, _VOID, _VOID, _VOID, _VOID, _VOID],
+                           _INT, _VOID, _LL, _VOID, _VOID, _VOID, _VOID, _VOID],
     },
     "rasterize_fwd": {
         "gs_rasterize_fwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT,
@@ -168,6 +168,7 @@ _SIGNATURES = {
     },
     "align": {
         "gs_align_rows": [_VOID, _LL, _VOID, _LL, _INT, _VOID, _VOID],
+        "gs_gather_records": [_VOID, _INT, _INT, _VOID, _VOID, _VOID, _LL, _VOID, _VOID],
     },
     "rasterize2d_fwd": {
         "gs_rasterize2d_fwd": [_VOID, _LL, _VOID, _INT, _INT, _INT, _INT, _INT, _INT,

@@ -29,6 +29,15 @@
 // fields, by select: a NaN in a culled row never reaches a live slot.  (The
 // TPU kernel's f32 _int_divmod, hi/lo transport and one-hot selection are
 // TPU workarounds.)  Bound by device-memory bytes: its [R, cap] output.
+// With R = 0 (no table) it writes only keys, depth and ids, 12 bytes a slot
+// instead of 12 + 4R, and the search is its larger cost: a prologue finds
+// the gaussian of each CTA's first slot (one search of all E rows per CTA,
+// all at once), and each thread searches only between its CTA's and the
+// next CTA's (a few rows, where 24 levels of E = 16.8 M took the slot's
+// thread before).  This is the mode of the 2DGS and eval3d paths, whose gather
+// into sorted order (csrc/align.cu, K9) reads each slot's fields from the
+// gaussian-major table through the sort, so no emission-ordered copy of the
+// fields is made.
 //
 // What bounds them on the H100: both move little data per thread and do
 // little arithmetic (a ~20-step binary search, ~40 flops for K3, one
@@ -184,12 +193,27 @@ __global__ void expand_emission_kernel(const int* __restrict__ rr, long long R,
   }
 }
 
+// K8's prologue: the gaussian of each CTA's first slot, br[b] =
+// upper_bound(cum_in, E, b * per_cta) where that slot lies below
+// min(cap, n_slots), else E.  Slot s of CTA b then has its gaussian in
+// [br[b], br[b + 1]]: one thread per CTA searches all E rows here, all
+// CTAs at once, and the main kernel searches only between the two.
+__global__ void aabb_brackets_kernel(const int* __restrict__ cum_in, long long E,
+                                     const int* __restrict__ n_slots_p, long long cap,
+                                     int per_cta, long long n_br, long long* __restrict__ br) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_br) return;
+  const long long s0 = b * per_cta;
+  br[b] = s0 < min(cap, (long long)*n_slots_p) ? upper_bound(cum_in, E, s0) : E;
+}
+
 __global__ void expand_aabb_kernel(const int* __restrict__ cum_in,
                                    const int* __restrict__ rect, long long E,
                                    const float* __restrict__ depth,
                                    const float* __restrict__ table, int R,
                                    const int* __restrict__ n_slots_p, long long cap,
                                    int tile_w, int tiles_per_im, int sentinel,
+                                   const long long* __restrict__ br,
                                    int* __restrict__ keys, float* __restrict__ depth_out,
                                    int* __restrict__ flat, float* __restrict__ fields) {
   const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -197,7 +221,8 @@ __global__ void expand_aabb_kernel(const int* __restrict__ cum_in,
   long long g = E;
   int key = sentinel;
   if (s < (long long)*n_slots_p) {
-    g = upper_bound(cum_in, E, s);
+    const long long lo = br[blockIdx.x];
+    g = lo + upper_bound(cum_in + lo, br[blockIdx.x + 1] - lo, s);
     if (g < E) {
       const long long ex = g > 0 ? cum_in[g - 1] : 0;
       const int within = (int)(s - ex);
@@ -262,16 +287,23 @@ int gs_expand_emission(const int* rr, long long R, const float* table_g,
 
 // cum_in [E] i32 inclusive cumsum of max(cnt, 1), rect [4, E] i32 (tminx,
 // tminy, w_rect, im), depth [E] f32, table [R, E] f32, n_slots [1] i32
-// (device) -> keys [cap] i32, depth_out [cap] f32, flat [cap] i32,
-// fields [R, cap] f32.
+// (device), scratch br [n_br] i64 with n_br >= ceil(cap / 256) + 1 -> keys
+// [cap] i32, depth_out [cap] f32, flat [cap] i32, fields [R, cap] f32
+// (R = 0: no table and no fields).
 int gs_expand_aabb(const int* cum_in, const int* rect, long long E,
                    const float* depth, const float* table, int R, const int* n_slots,
-                   long long cap, int tile_w, int tiles_per_im, int sentinel, int* keys,
-                   float* depth_out, int* flat, float* fields, cudaStream_t stream) {
-  if (cap > 0)
-    expand_aabb_kernel<<<blocks_for(cap), kThreads, 0, stream>>>(
-        cum_in, rect, E, depth, table, R, n_slots, cap, tile_w, tiles_per_im, sentinel,
+                   long long cap, int tile_w, int tiles_per_im, int sentinel,
+                   long long* br, long long n_br, int* keys, float* depth_out, int* flat,
+                   float* fields, cudaStream_t stream) {
+  if (cap > 0) {
+    const long long blocks = blocks_for(cap);
+    if (n_br < blocks + 1) return (int)cudaErrorInvalidValue;
+    aabb_brackets_kernel<<<blocks_for(blocks + 1), kThreads, 0, stream>>>(
+        cum_in, E, n_slots, cap, kThreads, blocks + 1, br);
+    expand_aabb_kernel<<<(unsigned int)blocks, kThreads, 0, stream>>>(
+        cum_in, rect, E, depth, table, R, n_slots, cap, tile_w, tiles_per_im, sentinel, br,
         keys, depth_out, flat, fields);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -12,44 +12,59 @@
 // sorted slot, v_slot [6+D, P]; every slot belongs to exactly one tile, so no
 // two CTAs write the same element and nothing is accumulated with atomics.
 //
-// Shape (upstream gsplat's RasterizeToPixels3DGSBwd.cu, with its atomics
-// replaced): one CTA per tile, one thread per pixel (tile 8, 16 or 32).  The
-// CTA walks its span in batches of 32 slots staged in shared memory.  Each
-// thread replays its own pixel forward, T and E in registers, deciding
-// "gated / stops / live" through csrc/composite.cuh exactly as the forward
-// did.  For each staged slot the 6+D per-pixel terms are reduced in a fixed
-// order: a shuffle tree inside each warp, the warps' partials to shared
-// memory, then one pass that adds the warps in index order and writes the
-// batch's rows to v_slot, coalesced.  A warp in which no lane is live for a
-// slot skips its reduction (a bit per slot and warp says so).  Once every
-// pixel has stopped the CTA leaves; the rest of its span keeps the zeros the
-// wrapper allocated.  The result is bit-identical from run to run.
+// What bounds it on the H100: operations.  Every evaluated (pixel, slot)
+// pair costs the forward's ~21 f32 operations again; a live pair needs
+// 29 + 3D more for its gradient terms (38 at D = 3) and one add into each of
+// its 6+D per-slot sums, against 2*(6+D) floats of traffic per slot.
+//
+// Design (K6b's, csrc/rasterize2d_bwd.cu).  One CTA per tile (8, 16 or 32
+// pixels square); each thread owns kPix pixels, one in each of kPix 8x4
+// blocks of the tile, so that much of each per-slot sum is taken in
+// registers, and a warp's 32 lanes cover one pixel of each of its blocks
+// (at tile 8, whose two blocks one warp covers, the rest are idle).  A
+// slot's fields, colours included, are read once per thread for all its
+// pixels.  kPix is 8 for the packed payload, whose fields are unpacked
+// where read, and 4 for float32 rows: on an H100, packed at the 3DGS step's
+// 4k inputs 8 took 9.88 ms where 4 took 10.42 (and two 12.85), float32 4
+// took 9.48 at 4k and 2.94 on the AV cameras where 8 took 9.52 and 3.34
+// (PERF.md): more pixels share a slot's reads and reduction, fewer leave
+// more warps to hide the latency of light tiles.  The tile's span
+// is walked in batches of kBatch slots, staged into shared memory with
+// cp.async and double-buffered: the next batch's rows are in flight while
+// this one is replayed.  For each slot a thread replays each of its pixels
+// that has not stopped through csrc/composite.cuh, exactly as the forward
+// (rasterize_fwd.cu) decides gate and stop, and adds each live pixel's terms
+// into its own 6+D partial sums.  A warp with a live lane then reduces those
+// 6+D values across its lanes by recursive halving (a reduce-scatter:
+// ceil(F/2) + ceil(F/4) + ... shuffles, 12 for F = 9, where one shuffle tree
+// per value took 5F = 45), which leaves each row's warp sum on one lane; that
+// lane writes it to shared memory.  At the batch's end one thread per (row,
+// slot) adds the warps' sums in warp order and writes the row, coalesced.
+// Every sum has a fixed order, so the result is the same bits from run to
+// run.  The gradient chain, which decides nothing, takes one approximate
+// reciprocal 1/(1-alpha) per live pair (one MUFU instruction, about an ulp);
+// the decisions keep composite.cuh's rounded intrinsics.
+//
+// A warp whose pixels have all stopped skips the batch; the CTA leaves once
+// all its pixels have, writing zeros over the rest of its span.  The CTAs
+// also write the zeros of the slots outside every span, so the wrapper
+// allocates the output without clearing it.
 //
 // The TPU kernel's 256-lane chunks, its carry between neighbouring tiles,
 // bf16 splits and moment basis exist for the TPU's matrix unit and ordered
 // grid and are not carried over.
 //
 // Packed modes (rasterize_pallas.py:_bwd_kernel packed=True :613-624,
-// :669-670, and pack_grads :690-709).  PACKED reads the packed payload that
-// the packed forward read (ceil((6+D)/2) bf16-pair carriers per slot, means
-// in tile-local pixels), unpacks it into the same staged rows and replays it
-// with tile-local pixel centres, so its decisions are the packed forward's;
+// :669-670, and pack_grads :690-709).  PACKED stages the packed payload
+// that the packed forward read (ceil((6+D)/2) bf16-pair carriers per slot,
+// means in tile-local pixels) and unpacks a field where it reads it, so it
+// replays the packed forward's decisions with tile-local pixel centres;
 // dx = px - mx is translation invariant, so the means' gradient read in the
 // tile-local frame is the gradient of the caller's means.  `pack_grads`
 // writes the 6+D per-slot sums, after the same fixed-order reduction, as
 // ceil((6+D)/2) bf16-pair carriers of the rows paired in order
 // (csrc/bf16pair.cuh): half the output bytes and half the rows that the
-// scatter back to emission order moves.  Slots no CTA reaches keep the zero
-// bits the wrapper allocated.
-//
-// What bounds it on the H100: operations.  Every evaluated (pixel, slot)
-// pair costs the forward's ~21 f32 operations again; a live pair needs
-// 29 + 3D more for its gradient terms (38 at D = 3) and one add into each of
-// its 6+D per-slot sums, against 2*(6+D) floats of traffic per slot.  The
-// shuffle tree spends 5 shuffle-adds per value and lane where the function
-// needs one add, which is this kernel's own cost and no part of its bound.
-// The design keeps the per-pair state in registers, skips dead warps, and
-// leaves early with the forward.
+// scatter back to emission order moves.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,33 +74,113 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kBatch = 32;  // staged slots per batch: one live bit each
+// pixels per thread, one in each of kPix 8x4 blocks; threads and warps of
+// a CTA at tile 32
+template <bool PACKED>
+constexpr int kPix = PACKED ? 8 : 4;
+template <bool PACKED>
+constexpr int kMaxThreads = 32 * 32 / kPix<PACKED>;
+template <bool PACKED>
+constexpr int kMaxWarps = kMaxThreads<PACKED> / 32;
+constexpr int kBatch = 64;            // slots staged per batch: one live bit each
+constexpr int kPStride = kBatch + 1;  // a warp-sum row in shared memory, padded
 constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 1/x to about an ulp, one MUFU instruction: the gradient chain's
+// reciprocal (decisions never read it)
+__device__ __forceinline__ float fast_rcp(float x) {
+  float r;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// One step of the reduce-scatter over lanes `lane ^ OFF`: of the N values a
+// lane holds, the lower half stays with the lane whose OFF bit is 0 and the
+// upper half with its partner, each added to the partner's copy.  The lane
+// ends with ceil(N/2) values, zeros past its share.
+template <int N, int OFF>
+struct ReduceScatter {
+  static __device__ __forceinline__ void run(float* v, int lane) {
+    constexpr int H = (N + 1) / 2;
+    const bool up = (lane & OFF) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFullMask, v, off);
-  return v;  // lane 0 holds the sum
+    for (int i = 0; i < H; ++i) {
+      const float lo = v[i];
+      const float hi = H + i < N ? v[H + i] : 0.0f;
+      const float send = up ? lo : hi;
+      v[i] = (up ? hi : lo) + __shfl_xor_sync(kFullMask, send, OFF);
+    }
+    ReduceScatter<H, OFF / 2>::run(v, lane);
+  }
+};
+
+template <int N>
+struct ReduceScatter<N, 0> {
+  static __device__ __forceinline__ void run(float*, int) {}
+};
+
+// Values a lane holds after the five steps.
+__host__ __device__ constexpr int held(int n) { return n <= 32 ? 1 : (n + 31) / 32; }
+
+// The rows a lane holds after ReduceScatter<N, 16>: its values v[i], i < *n,
+// are the warp sums of rows *first + i.
+template <int N, int OFF>
+__device__ __forceinline__ void held_rows(int lane, int* first, int* n) {
+  if constexpr (OFF > 0) {
+    constexpr int H = (N + 1) / 2;
+    if (lane & OFF) {
+      *first += H;
+      *n = max(0, *n - H);
+    } else {
+      *n = min(*n, H);
+    }
+    held_rows<H, OFF / 2>(lane, first, n);
+  }
+}
+
+// The sum over a CTA of a per-thread count, through __syncthreads_count,
+// bit by bit; every thread of the CTA must call it.
+__device__ __forceinline__ int cta_count(int n) {
+  int total = 0;
+  for (int bit = 0; bit < 31; ++bit) {
+    total += __syncthreads_count((n >> bit) & 1) << bit;
+    if (__syncthreads_or(n >> (bit + 1)) == 0) break;
+  }
+  return total;
 }
 
 template <int D, bool PACKED>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads<PACKED>)
 rasterize_bwd_kernel(const float* __restrict__ fields, long long P,
-                     const int* __restrict__ bounds, int tile, int tiles_w,
+                     const int* __restrict__ bounds, int n_tiles, int tile, int tiles_w,
                      int tiles_per_image, int width, int height, bool pack_grads,
                      const float* __restrict__ v_pix, const float* __restrict__ v_t,
                      const float* __restrict__ pix_out, const float* __restrict__ t_final,
                      float* __restrict__ v_slot, int* __restrict__ live_counts) {
   constexpr int F = 6 + D;
-  constexpr int R = (F + 1) / 2;  // carriers per slot, of the payload and of the gradients
-  extern __shared__ float smem[];
+  constexpr int R = (F + 1) / 2;         // carriers per slot, of the payload and of the gradients
+  constexpr int SR = PACKED ? R : F;     // staged rows per slot
+  extern __shared__ unsigned long long smem_u64[];
+  constexpr int NP = kPix<PACKED>;  // pixels per thread
+  unsigned long long* live_bits = smem_u64;                   // [kMaxWarps]
+  float* stage = (float*)(smem_u64 + kMaxWarps<PACKED>);       // [2][SR][kBatch]
+  float* partial = stage + 2 * SR * kBatch;                  // [n_warps][F][kPStride]
+
   const int B = blockDim.x;
   const int n_warps = B >> 5;
-  float* stage = smem;                      // [F][kBatch] staged slot fields
-  float* partial = smem + F * kBatch;       // [n_warps][F][kBatch] warp sums
-  unsigned* live_bits = (unsigned*)(partial + n_warps * F * kBatch);  // [n_warps]
-
+  const int n_blocks = tile * tile / 32;
   const int t = blockIdx.x;
   const int tr = threadIdx.x;
   const int lane = tr & 31;
@@ -95,152 +190,188 @@ rasterize_bwd_kernel(const float* __restrict__ fields, long long P,
   const int tl = t - im * tiles_per_image;
   const int ty = tl / tiles_w;
   const int tx = tl - ty * tiles_w;
-  const int x = tx * tile + tr % tile;
-  const int y = ty * tile + tr / tile;
-  // packed: tile-local centres, as the packed means are tile-local
-  const float px = (float)(PACKED ? tr % tile : x) + 0.5f;
-  const float py = (float)(PACKED ? tr / tile : y) + 0.5f;
-  const bool inside = x < width && y < height;
+  // warp w takes the 8x4 pixel blocks w + n_warps * k < n_blocks of the
+  // tile (tile / 8 blocks across), lane l pixel (l % 8, l / 8) of each
+  const int blocks_w = tile >> 3;
 
-  bool done = !inside;
-  float T = inside ? 1.0f : 0.0f;
-  float E = 0.0f;       // running sum_{j<=i} w_j d_j
-  float dtot = 0.0f;    // sum_c v_pix[c] * pix_out[c]
-  float vt_term = 0.0f; // v_T * T_final
-  int n_live = 0;
-  float vp[D];
+  // per pixel: the replay's state, the cotangents and the forward's outputs
+  bool done[NP];
+  float T[NP], px[NP], py[NP], vp[NP][D], dtot[NP], vt_term[NP], E[NP];
 #pragma unroll
-  for (int k = 0; k < D; ++k) vp[k] = 0.0f;
-  if (inside) {
-    const long long pix = ((long long)im * height + y) * width + x;
+  for (int k = 0; k < NP; ++k) {
+    const int block = warp + n_warps * k;
+    const int lx = (block % blocks_w) * 8 + (lane & 7);
+    const int ly = (block / blocks_w) * 4 + (lane >> 3);
+    const int x = tx * tile + lx;
+    const int y = ty * tile + ly;
+    const bool inside = block < n_blocks && x < width && y < height;
+    // packed: tile-local centres, as the packed means are tile-local
+    px[k] = (float)(PACKED ? lx : x) + 0.5f;
+    py[k] = (float)(PACKED ? ly : y) + 0.5f;
+    T[k] = inside ? 1.0f : 0.0f;
+    dtot[k] = vt_term[k] = E[k] = 0.0f;
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      vp[k] = v_pix[pix * D + k];
-      dtot += vp[k] * pix_out[pix * D + k];
+    for (int c = 0; c < D; ++c) vp[k][c] = 0.0f;
+    if (inside) {
+      const long long pix = ((long long)im * height + y) * width + x;
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        vp[k][c] = v_pix[pix * D + c];
+        dtot[k] += vp[k][c] * pix_out[pix * D + c];
+      }
+      vt_term[k] = v_t[pix] * t_final[pix];
     }
-    vt_term = v_t[pix] * t_final[pix];
+    done[k] = !inside;
   }
+  int n_live = 0;
+  int held_first = 0, held_n = F;
+  held_rows<F, 16>(lane, &held_first, &held_n);
+
+  // field f of staged slot j, unpacked where it is read
+  auto field = [&](const float* st, int f, int j) -> float {
+    if (PACKED) {
+      const float carrier = st[(f >> 1) * kBatch + j];
+      return (f & 1) ? gs::bf16_lo(carrier) : gs::bf16_hi(carrier);
+    }
+    return st[f * kBatch + j];
+  };
 
   const int start = bounds[t];
   const int end = bounds[t + 1];
   const int n_batches = (end - start + kBatch - 1) / kBatch;
-  for (int batch = 0; batch < n_batches; ++batch) {
-    // also the barrier that frees the shared buffers of the batch before
-    if (__syncthreads_count(done) == B) break;
+  auto stage_batch = [&](int batch) {
     const int base = start + batch * kBatch;
     const int n = min(kBatch, end - base);
-    if (PACKED) {
-      for (int o = tr; o < R * kBatch; o += B) {
-        const int c = o / kBatch;
-        const int j = o - c * kBatch;
-        if (j >= n) continue;
-        const float carrier = fields[c * P + base + j];
-        stage[(2 * c) * kBatch + j] = gs::bf16_hi(carrier);
-        if (2 * c + 1 < F) stage[(2 * c + 1) * kBatch + j] = gs::bf16_lo(carrier);
-      }
-    } else {
-      for (int o = tr; o < F * kBatch; o += B) {
-        const int f = o / kBatch;
-        const int j = o - f * kBatch;
-        if (j < n) stage[o] = fields[f * P + base + j];
-      }
+    float* dst = stage + (batch & 1) * SR * kBatch;
+    for (int o = tr; o < SR * kBatch; o += B) {
+      const int f = o / kBatch;
+      const int j = o - f * kBatch;
+      if (j < n) cp_async4(dst + o, fields + f * P + base + j);
     }
-    __syncthreads();
+  };
+  if (n_batches > 0) stage_batch(0);
+  cp_async_commit();
 
-    unsigned warp_live = 0;
-    for (int j = 0; j < n; ++j) {
-      bool live = false;
-      float w = 0.0f, v_op = 0.0f, v_mx = 0.0f, v_my = 0.0f, v_a = 0.0f, v_b = 0.0f,
-            v_c = 0.0f;
-      if (!done) {
-        const float a = stage[2 * kBatch + j];
-        const float b = stage[3 * kBatch + j];
-        const float c = stage[4 * kBatch + j];
-        done = gs::composite_pair(
-            px, py, stage[0 * kBatch + j], stage[1 * kBatch + j], a, b, c,
-            stage[5 * kBatch + j], T,
-            [&](const gs::Pair& p, float next_T) {
-              live = true;
-              ++n_live;
-              w = p.alpha * T;
-              float d = 0.0f;
+  const int out_rows = pack_grads ? R : F;
+  int batch = 0;
+  for (; batch < n_batches; ++batch) {
+    bool mine_done = true;
 #pragma unroll
-              for (int k = 0; k < D; ++k) d += vp[k] * stage[(6 + k) * kBatch + j];
-              E += w * d;
-              const float ra = 1.0f / (1.0f - p.alpha);  // alpha <= 0.99
-              const float v_alpha = d * T - (dtot - E) * ra - vt_term * ra;
-              if (!p.clamped) {
-                const float v_sigma = -p.alpha * v_alpha;
-                v_op = p.vis * v_alpha;
-                // sigma depends on the mean through dx = px - mx
-                v_mx = -v_sigma * (a * p.dx + b * p.dy);
-                v_my = -v_sigma * (c * p.dy + b * p.dx);
-                v_a = 0.5f * v_sigma * p.dx * p.dx;
-                v_b = v_sigma * p.dx * p.dy;
-                v_c = 0.5f * v_sigma * p.dy * p.dy;
-              }
-              T = next_T;
-            });
-      }
-      if (__ballot_sync(kFullMask, live) == 0) continue;
-      warp_live |= 1u << j;
-      float* out = partial + (size_t)warp * F * kBatch + j;
-      v_mx = warp_sum(v_mx);
-      v_my = warp_sum(v_my);
-      v_a = warp_sum(v_a);
-      v_b = warp_sum(v_b);
-      v_c = warp_sum(v_c);
-      v_op = warp_sum(v_op);
-      if (lane == 0) {
-        out[0 * kBatch] = v_mx;
-        out[1 * kBatch] = v_my;
-        out[2 * kBatch] = v_a;
-        out[3 * kBatch] = v_b;
-        out[4 * kBatch] = v_c;
-        out[5 * kBatch] = v_op;
-      }
+    for (int k = 0; k < NP; ++k) mine_done = mine_done && done[k];
+    // also the barrier after which the batch before's buffers may be reused
+    if (__syncthreads_count(mine_done) == B) break;
+    if (batch + 1 < n_batches) stage_batch(batch + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of `batch` have landed
+    __syncthreads();     // and everyone's
+
+    const int base = start + batch * kBatch;
+    const int n = min(kBatch, end - base);
+    const float* st = stage + (batch & 1) * SR * kBatch;
+    unsigned long long warp_live = 0;
+    if (!__all_sync(kFullMask, mine_done)) {
+      for (int j = 0; j < n; ++j) {
+        float acc[F];
 #pragma unroll
-      for (int k = 0; k < D; ++k) {
-        const float v = warp_sum(vp[k] * w);
-        if (lane == 0) out[(6 + k) * kBatch] = v;
+        for (int r = 0; r < F; ++r) acc[r] = 0.0f;
+        bool live = false;
+        bool need = false;
+#pragma unroll
+        for (int k = 0; k < NP; ++k) need = need || !done[k];
+        if (need) {
+          // the slot's response and colours, read once for all NP pixels
+          const float mx = field(st, 0, j), my = field(st, 1, j);
+          const float a = field(st, 2, j), b = field(st, 3, j), c = field(st, 4, j);
+          const float op = field(st, 5, j);
+          float col[D];
+#pragma unroll
+          for (int ch = 0; ch < D; ++ch) col[ch] = field(st, 6 + ch, j);
+#pragma unroll
+          for (int k = 0; k < NP; ++k) {
+            if (done[k]) continue;
+            const bool stop = gs::composite_pair(
+                px[k], py[k], mx, my, a, b, c, op, T[k], [&](const gs::Pair& p, float next_T) {
+                  live = true;
+                  ++n_live;
+                  const float Tk = T[k];
+                  const float w = p.alpha * Tk;
+                  float d = 0.0f;
+#pragma unroll
+                  for (int ch = 0; ch < D; ++ch) {
+                    d += vp[k][ch] * col[ch];
+                    acc[6 + ch] += vp[k][ch] * w;
+                  }
+                  E[k] += w * d;
+                  const float ra = fast_rcp(1.0f - p.alpha);  // alpha <= 0.99
+                  const float v_alpha = d * Tk - (dtot[k] - E[k]) * ra - vt_term[k] * ra;
+                  if (!p.clamped) {
+                    // s = -v_sigma; sigma depends on the mean through
+                    // dx = px - mx.  Rows 2 to 4 add s dx^2, s dx dy, s dy^2:
+                    // their sums take -1/2, -1, -1/2 at the batch's end
+                    const float s = p.alpha * v_alpha;
+                    const float t1 = s * p.dx, t2 = s * p.dy;
+                    acc[5] += p.vis * v_alpha;
+                    acc[0] += a * t1 + b * t2;
+                    acc[1] += c * t2 + b * t1;
+                    acc[2] += t1 * p.dx;
+                    acc[3] += t1 * p.dy;
+                    acc[4] += t2 * p.dy;
+                  }
+                  T[k] = next_T;
+                });
+            done[k] = done[k] || stop;
+          }
+        }
+        if (__ballot_sync(kFullMask, live) == 0) continue;
+        warp_live |= 1ull << j;
+        ReduceScatter<F, 16>::run(acc, lane);
+        float* out = partial + ((size_t)warp * F + held_first) * kPStride + j;
+#pragma unroll
+        for (int i = 0; i < held(F); ++i)
+          if (i < held_n) out[i * kPStride] = acc[i];
       }
     }
     if (lane == 0) live_bits[warp] = warp_live;
     __syncthreads();
 
-    // the warps' partials, added in warp order, one output element a thread
+    // the warps' sums, added in warp order, one output element a thread
+    // (rows 2 to 4 scaled as the replay left them: exact, a power of two)
     auto slot_sum = [&](int f, int j) {
       float sum = 0.0f;
       for (int wi = 0; wi < n_warps; ++wi) {
-        if ((live_bits[wi] >> j) & 1u) sum += partial[((size_t)wi * F + f) * kBatch + j];
+        if ((live_bits[wi] >> j) & 1ull) sum += partial[((size_t)wi * F + f) * kPStride + j];
       }
-      return sum;
+      return f == 2 || f == 4 ? -0.5f * sum : f == 3 ? -sum : sum;
     };
-    if (pack_grads) {
-      for (int o = tr; o < R * kBatch; o += B) {
-        const int c = o / kBatch;
-        const int j = o - c * kBatch;
-        if (j >= n) continue;
-        const float lo = 2 * c + 1 < F ? slot_sum(2 * c + 1, j) : 0.0f;
-        v_slot[c * P + base + j] = gs::pack_bf16_pair(slot_sum(2 * c, j), lo);
-      }
-    } else {
-      for (int o = tr; o < F * kBatch; o += B) {
-        const int f = o / kBatch;
-        const int j = o - f * kBatch;
-        if (j < n) v_slot[f * P + base + j] = slot_sum(f, j);
+    for (int o = tr; o < out_rows * kBatch; o += B) {
+      const int r = o / kBatch;
+      const int j = o - r * kBatch;
+      if (j >= n) continue;
+      if (pack_grads) {
+        const float lo = 2 * r + 1 < F ? slot_sum(2 * r + 1, j) : 0.0f;
+        v_slot[r * P + base + j] = gs::pack_bf16_pair(slot_sum(2 * r, j), lo);
+      } else {
+        v_slot[r * P + base + j] = slot_sum(r, j);
       }
     }
   }
+  cp_async_wait<0>();  // nothing in flight into this CTA's buffers
+
+  // the rest of the span, which no live pair reaches, reads 0 (zero bits)
+  const int rest = start + batch * kBatch;
+  for (int r = 0; r < out_rows; ++r)
+    for (int s = rest + tr; s < end; s += B) v_slot[r * P + s] = 0.0f;
+  // this CTA's share of the slots outside every span
+  const long long lead = bounds[0];
+  const long long outside = lead + (P - bounds[n_tiles]);
+  const long long q_lo = outside * t / n_tiles;
+  const long long q_hi = outside * (t + 1) / n_tiles;
+  for (int r = 0; r < out_rows; ++r)
+    for (long long q = q_lo + tr; q < q_hi; q += B)
+      v_slot[r * P + (q < lead ? q : bounds[n_tiles] + (q - lead))] = 0.0f;
 
   if (live_counts != nullptr) {
-    // __syncthreads_count sums a predicate; the per-pixel counts go bit by bit
-    int total = 0;
-    for (int bit = 0; bit < 31; ++bit) {
-      const int n = __syncthreads_count((n_live >> bit) & 1);
-      total += n << bit;
-      if (__syncthreads_or(n_live >> (bit + 1)) == 0) break;
-    }
+    const int total = cta_count(n_live);
     if (tr == 0) live_counts[t] = total;
   }
 }
@@ -251,9 +382,11 @@ int launch(const float* fields, long long P, const int* bounds, int tile,
            bool pack_grads, const float* v_pix, const float* v_t, const float* pix_out,
            const float* t_final, float* v_slot, int* live_counts, cudaStream_t stream) {
   constexpr int F = 6 + D;
-  const int threads = tile * tile;
+  constexpr int SR = PACKED ? (F + 1) / 2 : F;
+  const int threads = max(32, tile * tile / kPix<PACKED>);
   const int n_warps = threads / 32;
-  const size_t smem = sizeof(float) * F * kBatch * (1 + n_warps) + sizeof(unsigned) * n_warps;
+  const size_t smem = sizeof(unsigned long long) * kMaxWarps<PACKED> +
+                      sizeof(float) * (2 * SR * kBatch + n_warps * F * kPStride);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(rasterize_bwd_kernel<D, PACKED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -261,8 +394,8 @@ int launch(const float* fields, long long P, const int* bounds, int tile,
     if (e != cudaSuccess) return (int)e;
   }
   rasterize_bwd_kernel<D, PACKED><<<n_tiles, threads, smem, stream>>>(
-      fields, P, bounds, tile, tiles_w, tiles_per_image, width, height, pack_grads, v_pix,
-      v_t, pix_out, t_final, v_slot, live_counts);
+      fields, P, bounds, n_tiles, tile, tiles_w, tiles_per_image, width, height, pack_grads,
+      v_pix, v_t, pix_out, t_final, v_slot, live_counts);
   return (int)cudaGetLastError();
 }
 
@@ -278,9 +411,9 @@ const char* gs_error_string(int code) {
 // carriers with tile-local means), bounds [n_tiles+1] i32 tile spans, v_pix
 // and pix_out [I, H, W, D] f32, v_t and t_final [I, H, W] f32 -> v_slot
 // [6+D, P] f32, or with pack_grads [ceil((6+D)/2), P] bf16-pair carriers
-// (zeroed by the caller; slots no CTA reaches stay zero) and, unless null,
-// live_counts [n_tiles] i32: the live (pixel, slot) pairs of each tile.
-// D in [1, 32].
+// (every element written: zeros where no live pair reaches) and, unless
+// null, live_counts [n_tiles] i32: the live (pixel, slot) pairs of each
+// tile.  Tile 8, 16 or 32; D in [1, 32].
 int gs_rasterize_bwd(const float* fields, long long P, const int* bounds,
                      int D, int tile, int tiles_w, int tiles_per_image,
                      int width, int height, int n_tiles, int packed, int pack_grads,
@@ -288,6 +421,7 @@ int gs_rasterize_bwd(const float* fields, long long P, const int* bounds,
                      const float* t_final, float* v_slot, int* live_counts,
                      cudaStream_t stream) {
   if (n_tiles == 0) return (int)cudaGetLastError();
+  if (tile != 8 && tile != 16 && tile != 32) return (int)cudaErrorInvalidValue;
   switch (D) {
 #define GS_LAUNCH(d, p) \
   launch<d, p>(fields, P, bounds, tile, tiles_w, tiles_per_image, width, height, n_tiles, pack_grads != 0, v_pix, v_t, pix_out, t_final, v_slot, live_counts, stream)

@@ -12,8 +12,11 @@ gather_pallas.py:_expand2_kernel (:584, wrapper expand_emission2 :721), in
 its float32 layout and (`packed=True`, :691-716) its bf16-pair layout with
 tile-local means, whose launches count in `expand_emission.launches_packed`;
 K8 `expand_emission_aabb` replaces _expand_kernel (:120, wrapper
-expand_emission :216; K4 took that name here first); K9
-`align_rows` replaces _align_kernel (:274, wrapper :316).  The TPU kernels'
+expand_emission :216; K4 took that name here first), with or without its
+field table; K9 replaces _align_kernel (:274, wrapper :316) as
+`gather_records`, the paths' gather of gaussian-major records through the
+sort, and as `align_rows`, the JAX-shaped gather of a field-major table.
+The TPU kernels'
 windowed one-hot selection and hi/lo integer transport are TPU workarounds
 and are not ported: the CUDA kernels find their source row by binary search
 and read it directly.
@@ -21,7 +24,7 @@ and read it directly.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -245,11 +248,12 @@ RC_TMINX, RC_TMINY, RC_W, RC_IM = range(4)
 
 
 def expand_emission_aabb_plain(
-    cum_in: torch.Tensor, rect: torch.Tensor, depth: torch.Tensor, table: torch.Tensor,
-    n_slots: torch.Tensor, cap: int, tile_w: int, tiles_per_im: int, sentinel: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    cum_in: torch.Tensor, rect: torch.Tensor, depth: torch.Tensor,
+    table: Optional[torch.Tensor], n_slots: torch.Tensor, cap: int, tile_w: int,
+    tiles_per_im: int, sentinel: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of K8: (keys int32 [cap], depth f32 [cap], flat ids
-    int32 [cap], fields f32 [R, cap])."""
+    int32 [cap], fields f32 [R, cap], or None without a table)."""
     E = cum_in.shape[0]
     dev = cum_in.device
     s = torch.arange(cap, dtype=torch.int32, device=dev)
@@ -268,6 +272,8 @@ def expand_emission_aabb_plain(
     del s, g, found, ex, within, r, w_rect, ty, tx  # a 4k step emits ~130 M slots
     depth_s = torch.where(live, depth[gc], float("inf"))
     flat = torch.where(live, gc, 0).to(torch.int32)
+    if table is None:
+        return key, depth_s, flat, None
     fields = table[:, gc].masked_fill_(~live[None], 0.0)  # by select: a NaN stays out
     return key, depth_s, flat, fields
 
@@ -276,13 +282,13 @@ def expand_emission_aabb(
     cum_in: torch.Tensor,  # [E] i32 inclusive cumsum of max(cnt, 1)
     rect: torch.Tensor,  # [4, E] i32 (tminx, tminy, w_rect, im); im == n_images: culled
     depth: torch.Tensor,  # [E] f32 sort depth
-    table: torch.Tensor,  # [R, E] f32 render fields
+    table: Optional[torch.Tensor],  # [R, E] f32 render fields, or None
     n_slots: torch.Tensor,  # [1] i32 emission slots (dummies included)
     cap: int,
     tile_w: int,
     tiles_per_im: int,
     sentinel: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Expand per-gaussian rows to AABB emission slots, gaussian-major.
 
     Gaussian g owns slots [cum_in[g-1], cum_in[g]) and covers its tile
@@ -290,7 +296,9 @@ def expand_emission_aabb(
     im*tiles_per_im + ty*tile_w + tx, g's depth, g's flat id and g's fields;
     a slot at or past n_slots or a culled gaussian's dummy slot gets the
     sentinel key, depth inf, id 0 and zero fields.  Returns (keys int32
-    [cap], depth f32 [cap], flat int32 [cap], fields f32 [R, cap]).
+    [cap], depth f32 [cap], flat int32 [cap], fields f32 [R, cap]); without
+    a table (the paths' mode: `gather_records` reads the fields through the
+    sort) fields is None and nothing else changes.
     """
     if cum_in.dim() != 1 or cum_in.dtype != torch.int32 or not cum_in.is_contiguous():
         raise ValueError("cum_in must be a contiguous int32 [E] tensor")
@@ -298,24 +306,29 @@ def expand_emission_aabb(
     _check_table("rect", rect, 4, torch.int32)
     if rect.shape[1] != E or depth.shape != (E,) or depth.dtype != torch.float32:
         raise ValueError(f"rect and depth must cover the {E} gaussians of cum_in")
-    if (table.dim() != 2 or table.shape[1] != E or table.dtype != torch.float32
-            or not table.is_contiguous()):
+    if table is not None and (table.dim() != 2 or table.shape[1] != E
+                              or table.dtype != torch.float32 or not table.is_contiguous()):
         raise ValueError(f"table must be a contiguous float32 [R, {E}] tensor")
     _check_count("n_slots", n_slots)
-    if not check_kernel_device("expand_emission_aabb", cum_in, rect, depth, table, n_slots):
+    tensors = (cum_in, rect, depth, n_slots) + (() if table is None else (table,))
+    if not check_kernel_device("expand_emission_aabb", *tensors):
         return expand_emission_aabb_plain(cum_in, rect, depth, table, n_slots, cap, tile_w,
                                           tiles_per_im, sentinel)
     lib = _build.load("expand")
-    R = table.shape[0]
+    R = 0 if table is None else table.shape[0]
     dev = cum_in.device
     keys = torch.empty((cap,), dtype=torch.int32, device=dev)
     depth_s = torch.empty((cap,), dtype=torch.float32, device=dev)
     flat = torch.empty((cap,), dtype=torch.int32, device=dev)
-    fields = torch.empty((R, cap), dtype=torch.float32, device=dev)
+    fields = None if table is None else torch.empty((R, cap), dtype=torch.float32, device=dev)
+    # the gaussian of each 256-slot CTA's first slot, the search's brackets
+    br = torch.empty((-(-cap // 256) + 1,), dtype=torch.int64, device=dev)
     code = lib.gs_expand_aabb(
-        cum_in.data_ptr(), rect.data_ptr(), E, depth.contiguous().data_ptr(), table.data_ptr(),
-        R, n_slots.data_ptr(), cap, tile_w, tiles_per_im, sentinel, keys.data_ptr(),
-        depth_s.data_ptr(), flat.data_ptr(), fields.data_ptr(), _build.stream_of(keys),
+        cum_in.data_ptr(), rect.data_ptr(), E, depth.contiguous().data_ptr(),
+        None if table is None else table.data_ptr(), R, n_slots.data_ptr(), cap, tile_w,
+        tiles_per_im, sentinel, br.data_ptr(), br.shape[0], keys.data_ptr(),
+        depth_s.data_ptr(), flat.data_ptr(), None if fields is None else fields.data_ptr(),
+        _build.stream_of(keys),
     )
     _build.check(lib, code, "expand_emission_aabb")
     expand_emission_aabb.launches += 1
@@ -326,8 +339,59 @@ expand_emission_aabb.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K9: row gather into sorted order
+# K9: the gather into sorted order
 # ---------------------------------------------------------------------------
+
+
+def gather_records_plain(
+    records: torch.Tensor, flat: torch.Tensor, order: torch.Tensor, n_live: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of K9's record gather: records[flat[order]].t(), zero
+    from the sorted position n_live on."""
+    n = int(n_live)
+    out = torch.zeros((records.shape[1], order.shape[0]), dtype=torch.float32,
+                      device=records.device)
+    out[:, :n] = records[flat[order[:n]].long()].t()
+    return out
+
+
+def gather_records(
+    records: torch.Tensor,  # [E, R] f32 gaussian-major fields, rows at any stride >= R
+    flat: torch.Tensor,  # [cap] i32 gaussian id of each emission slot (K8)
+    order: torch.Tensor,  # [A] i64 emission slot at each sorted position (the sort's)
+    n_live: torch.Tensor,  # [1] i32 sorted positions before the sentinel tail (bounds[T])
+) -> torch.Tensor:
+    """out[f, a] = records[flat[order[a]], f] for a < n_live, else 0:
+    [R, A] f32, the same bits as the records.  This is K8's field copy
+    followed by `align_rows` through `order`, without the emission-ordered
+    table: a live sorted position holds a live slot, whose fields K8 copies
+    from its gaussian's record, and the sentinel tail holds the slots K8
+    zeroes.  A table whose row stride is a multiple of 4 floats (a padded
+    record, `rasterize.gaussian_records`) is read in 16-byte loads."""
+    if (records.dim() != 2 or records.dtype != torch.float32 or records.stride(1) != 1
+            or records.stride(0) < records.shape[1]):
+        raise ValueError("records must be a float32 [E, R] tensor with unit column stride")
+    if flat.dim() != 1 or flat.dtype != torch.int32 or not flat.is_contiguous():
+        raise ValueError(f"flat must be a contiguous int32 [cap] tensor, got {flat.dtype}")
+    if order.dim() != 1 or order.dtype != torch.int64 or not order.is_contiguous():
+        raise ValueError(f"order must be a contiguous int64 [A] tensor, got {order.dtype}")
+    if n_live.shape != (1,) or n_live.dtype != torch.int32:
+        raise ValueError(f"n_live must be an int32 [1] tensor, got {n_live.dtype} {tuple(n_live.shape)}")
+    if not check_kernel_device("gather_records", records, flat, order, n_live):
+        return gather_records_plain(records, flat, order, n_live)
+    lib = _build.load("align")
+    R = records.shape[1]
+    out = torch.empty((R, order.shape[0]), dtype=torch.float32, device=records.device)
+    code = lib.gs_gather_records(
+        records.data_ptr(), records.stride(0), R, flat.data_ptr(), order.data_ptr(),
+        n_live.contiguous().data_ptr(), order.shape[0], out.data_ptr(), _build.stream_of(out),
+    )
+    _build.check(lib, code, "gather_records")
+    gather_records.launches += 1
+    return out
+
+
+gather_records.launches = 0
 
 
 def align_rows_plain(rows: torch.Tensor, src: torch.Tensor) -> torch.Tensor:

@@ -62,7 +62,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .bf16pair import unpack_rows
-from .gather_kernel import align_rows, expand_emission, expand_emission_aabb, expand_rows
+from .gather_kernel import expand_emission, expand_emission_aabb, expand_rows, gather_records
 from .projection import ALPHA_THRESHOLD
 from .rasterize_kernel import rasterize_bwd, rasterize_fwd
 from .segsum_kernel import segment_rowsum
@@ -588,8 +588,24 @@ def make_emission_plan(
     )
 
 
+def gaussian_records(cols, keep: torch.Tensor, fill: Optional[torch.Tensor] = None):
+    """The gaussian-major field table [E, R] that `expand_sort_align`
+    gathers: the columns `cols` ([E, r] each) side by side, `fill` ([1, R],
+    default zeros) where `keep` ([E, 1]) is False, by select.  Each row is
+    padded to a multiple of 4 floats in storage (the returned tensor is a
+    view of the first R), so that K9 loads a record in 16-byte pieces."""
+    R = sum(c.shape[1] for c in cols)
+    pad = _round_up(R, 4) - R
+    if pad:
+        cols = list(cols) + [cols[0].new_zeros((cols[0].shape[0], pad))]
+        if fill is not None:
+            fill = torch.cat([fill, fill.new_zeros((1, pad))], dim=1)
+    table = torch.cat(cols, dim=1)
+    return torch.where(keep, table, 0.0 if fill is None else fill)[:, :R]
+
+
 def expand_sort_align(
-    table: torch.Tensor,  # [R, E] f32 render fields (sanitized)
+    records: torch.Tensor,  # [E, R] f32 gaussian-major render fields (sanitized)
     depth: torch.Tensor,  # [E] f32 sort depth (> 0 where the gaussian is live)
     plan: EmissionPlan,
     cap_total: int,
@@ -597,30 +613,35 @@ def expand_sort_align(
     tile_height: int,
     n_images: int,
 ):
-    """Emission (K8), one stable sort by (tile, depth), the row gather into
-    sorted order (K9) and the per-tile spans (rasterize.py:1111-1184).
+    """Emission (K8, keys, depths and ids only), one stable sort by (tile,
+    depth), the per-tile spans and the gather of each sorted slot's fields
+    from its gaussian's record (K9) (rasterize.py:1111-1184).
 
-    The JAX function sorts unstably and pads each tile's span to 128-slot
-    chunks for its kernel; here one stable sort on the int64 key
-    tile << 32 | float bits of depth keeps equal depths in emission order, as
-    isect_tiles does (depths of live slots are positive, so their bits sort
-    as the floats do; dead slots carry the sentinel tile), and the composite
-    reads each tile's span directly.  Returns (sorted fields [R, cap_total],
-    bounds int32 [T+1], order int64 [cap_total]: the emission slot at each
-    sorted position, flat ids int32 [cap_total] in emission order).
+    The JAX function expands the fields in emission order, sorts unstably
+    and pads each tile's span to 128-slot chunks for its kernel; here one
+    stable sort on the int64 key tile << 32 | float bits of depth keeps
+    equal depths in emission order, as isect_tiles does (depths of live
+    slots are positive, so their bits sort as the floats do; dead slots
+    carry the sentinel tile), K9 reads records[flat[order]] directly, which
+    is the emission-ordered copy gathered through `order`, bit for bit, and
+    the composite reads each tile's span directly.  Returns (sorted fields
+    [R, cap_total], bounds int32 [T+1], order int64 [cap_total]: the
+    emission slot at each sorted position, flat ids int32 [cap_total] in
+    emission order).
     """
     T = n_images * tile_width * tile_height
     rect = torch.stack([plan.tminx, plan.tminy, plan.w_rect, plan.im]).contiguous()
-    keys, depth_s, flat, fields = expand_emission_aabb(
-        plan.cum_in, rect, depth.contiguous(), table, plan.n_slots, cap_total, tile_width,
+    keys, depth_s, flat, _ = expand_emission_aabb(
+        plan.cum_in, rect, depth.contiguous(), None, plan.n_slots, cap_total, tile_width,
         tile_width * tile_height, T,
     )
     bits = depth_s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
     keys_s, order = torch.sort((keys.to(torch.int64) << 32) | bits, stable=True)
-    del bits, depth_s
-    fields_s = align_rows(fields, order.to(torch.int32))
-    probes = torch.arange(T + 1, dtype=torch.int64, device=keys.device) << 32
+    del bits, depth_s, keys
+    probes = torch.arange(T + 1, dtype=torch.int64, device=keys_s.device) << 32
     bounds = torch.searchsorted(keys_s, probes, side="left", out_int32=True)
+    del keys_s, probes
+    fields_s = gather_records(records, flat, order, bounds[T:])
     return fields_s, bounds, order, flat
 
 

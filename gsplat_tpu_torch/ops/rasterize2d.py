@@ -4,10 +4,11 @@ Port of `gsplat_tpu/ops/rasterize2d.py` (_core2d_fwd :66-105, _core2d_bwd
 :108-151, rasterize_to_pixels_2dgs :157-220).  The forward runs:
 
   1. the AABB emission plan (ops/rasterize.py:make_emission_plan);
-  2. the emission of every slot with its tile key, depth and 15 + D fields
+  2. the emission of every slot with its tile key, depth and gaussian id
      (kernel K8, ops/gather_kernel.py:expand_emission_aabb);
-  3. one stable sort by (tile, depth), the row gather into sorted order
-     (kernel K9, ops/gather_kernel.py:align_rows) and per-tile spans;
+  3. one stable sort by (tile, depth), the per-tile spans and the gather of
+     each sorted slot's 15 + D fields from its gaussian's record (kernel K9,
+     ops/gather_kernel.py:gather_records);
   4. the surfel composite (kernel K6a, ops/rasterize2d_kernel.py).
 
 The backward (`_Rasterize2DCore.backward`) runs the composite's backward
@@ -29,6 +30,7 @@ from .rasterize import (
     EmissionPlan,
     _round_up,
     expand_sort_align,
+    gaussian_records,
     make_emission_plan,
     reduce_slot_grads,
 )
@@ -46,10 +48,10 @@ class _Rasterize2DCore(torch.autograd.Function):
                 cap_total, tile_width, tile_height, n_images, width, height):
         ok = (plan.cnt > 0)[:, None]
         Mf = torch.where(ok, Mf, 0.0)
-        table = torch.where(ok, torch.cat([m2f, Mf, opf[:, None], clf, nrf], dim=1), 0.0)
+        table = gaussian_records([m2f, Mf, opf[:, None], clf, nrf], ok)
         depthf = torch.where(ok[:, 0], depthf, 0.0)
         fields_s, bounds, order, _ = expand_sort_align(
-            table.t().contiguous(), depthf, plan, cap_total, tile_width, tile_height, n_images
+            table, depthf, plan, cap_total, tile_width, tile_height, n_images
         )
         del table
         pix_out, t_final, med_slot = rasterize2d_fwd(

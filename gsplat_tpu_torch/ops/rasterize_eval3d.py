@@ -9,10 +9,10 @@ sorting.  The forward runs:
 
   1. the AABB emission plan from the projected radii
      (ops/rasterize.py:make_emission_plan);
-  2. the emission of every slot with its tile key, depth and F fields
-     (kernel K8), one stable sort by (tile, depth), the row gather into
-     sorted order (kernel K9) and per-tile spans
-     (ops/rasterize.py:expand_sort_align);
+  2. the emission of every slot with its tile key, depth and gaussian id
+     (kernel K8), one stable sort by (tile, depth), the per-tile spans and
+     the gather of each sorted slot's F fields from its gaussian's record
+     (kernel K9) (ops/rasterize.py:expand_sort_align);
   3. the composite along the rays (kernel K7a,
      ops/rasterize_eval3d_kernel.py).
 
@@ -37,6 +37,7 @@ from .rasterize import (
     EmissionPlan,
     _round_up,
     expand_sort_align,
+    gaussian_records,
     make_emission_plan,
     reduce_slot_grads,
 )
@@ -76,10 +77,10 @@ class _RasterizeEval3DCore(torch.autograd.Function):
                            device=xyzf.device)
         if use_hit_distance:
             fill[:, 13:16] = 1.0  # culled rows take unit scales
-        table = torch.where(ok, torch.cat(rows, dim=1), fill)
+        table = gaussian_records(rows, ok, fill)
         depthf = torch.where(ok[:, 0], depthf, 0.0)
         fields_s, bounds, order, _ = expand_sort_align(
-            table.t().contiguous(), depthf, plan, cap_total, tile_width, tile_height, n_images
+            table, depthf, plan, cap_total, tile_width, tile_height, n_images
         )
         del table
         height, width = rays.shape[1], rays.shape[2]

@@ -377,7 +377,10 @@ def rasterize_bwd(
                                    D)[0]
     lib = _build.load("rasterize_bwd")
     rows = grad_pack_rows(D) if pack_grads else 6 + D
-    v_slot = torch.zeros((rows, fields.shape[1]), dtype=torch.float32, device=fields.device)
+    # the kernel writes every element, zeros where no live pair reaches,
+    # when there is a tile to write them
+    alloc = torch.empty if n_tiles > 0 else torch.zeros
+    v_slot = alloc((rows, fields.shape[1]), dtype=torch.float32, device=fields.device)
     code = lib.gs_rasterize_bwd(
         fields.data_ptr(), fields.shape[1], bounds.contiguous().data_ptr(), D, tile,
         tiles_w, tiles_w * tiles_h, width, height, n_tiles, int(packed), int(pack_grads),

@@ -142,7 +142,7 @@ def test_sort_keeps_isect_tiles_order_for_equal_depths():
                        capacity=4096)
     n = int(want.n_isects)
     plan = tr.make_emission_plan(torch.from_numpy(m2), torch.from_numpy(radii), TS, 2, 2, 4608)
-    table = torch.arange(N, dtype=torch.float32)[None]
+    table = torch.arange(N, dtype=torch.float32)[:, None]
     fields_s, bounds, order, flat = tr.expand_sort_align(table, torch.from_numpy(depths[0]), plan,
                                                          4608, 2, 2, C)
     assert int(bounds[-1]) == n

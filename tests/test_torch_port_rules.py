@@ -346,6 +346,90 @@ def test_packed_kernels_match_plain_versions_on_the_card(D):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["long_spans", "all_stop", "lead_and_tail"])
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_k2_stress_cases_on_the_card(case, ts):
+    """K2 (float32 and packed with pack_grads) where its batches, early
+    exit and zero writes are stressed: spans of many 64-slot batches,
+    pixels that all stop within the first batches (the CTA leaves and zeroes
+    the rest of its span), and slots outside every span before the first
+    tile's and after the last (each CTA zeroes its share).  The output is
+    allocated uncleared and filled with NaN first, so a slot no CTA writes
+    shows.  Live pairs equal the forward's, two runs give the same bits, the
+    rows are within the tolerances of the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import bf16pair as tb
+    from gsplat_tpu_torch.ops import rasterize_kernel as tk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    I, Wd, Hd, D = 1, 100, 70, 3
+    N = {"long_spans": 6000, "all_stop": 3000, "lead_and_tail": 2000}[case]
+    m2 = torch.rand(I, N, 2, generator=g, device=dev) * torch.tensor([Wd, Hd], device=dev)
+    a = torch.rand(I, N, generator=g, device=dev) * 0.05 + 0.005
+    c = torch.rand(I, N, generator=g, device=dev) * 0.05 + 0.005
+    b = (torch.rand(I, N, generator=g, device=dev) - 0.5) * torch.sqrt(a * c)
+    cn = torch.stack([a, b, c], -1)
+    cl = torch.rand(I, N, D, generator=g, device=dev)
+    op = torch.rand(I, N, generator=g, device=dev) * (0.2 if case == "long_spans" else 1.0)
+    if case == "all_stop":
+        op = torch.full_like(op, 0.98)
+    dep = torch.rand(I, N, generator=g, device=dev) + 0.5
+    rad = torch.full((I, N, 2), 40, dtype=torch.int32, device=dev)
+    tw, th = -(-Wd // ts), -(-Hd // ts)
+    T = I * tw * th
+    comp = tr.compact_by_depth(m2, cn, cl, op, rad, dep)
+    plan = tr.make_tight_plan(comp.means2d, comp.radii, comp.conics, comp.opacities,
+                              comp.image_ids, comp.n_live, I, ts, tw, th, 1 << 19, 1 << 17)
+    assert not bool(plan.overflow)
+    table = tr.field_table(comp, plan.dummy)
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+
+    keys, fields = tg.expand_emission(plan.rr, table, plan.n_slots, 1 << 19, tw, tw * th, T)
+    fs, bounds, _ = tr.sort_slots(keys, fields, T)
+    lead = 37 if case == "lead_and_tail" else 0
+    if lead:  # slots before the first span: junk rows that no tile reads
+        fs = torch.cat([torch.full((fs.shape[0], lead), float("nan"), device=dev), fs], 1)
+        bounds = bounds + lead
+    spans = bounds[1:] - bounds[:-1]
+    if case == "long_spans":
+        assert int(spans.max()) > 6 * 64
+    geo = (I, ts, tw, th, Wd, Hd)
+    kept = torch.empty(T, dtype=torch.int32, device=dev)
+    col, t = tk.rasterize_fwd(fs, bounds, *geo, pair_counts=kept)
+    v_pix = torch.randn(col.shape, generator=g, device=dev)
+    v_t = torch.randn(t.shape, generator=g, device=dev)
+    bargs = (fs, bounds, *geo, v_pix, v_t, col, t)
+    n_sorted = int(bounds[-1])
+    for pack_grads in (False, True):
+        modes = dict(pack_grads=pack_grads)
+        live = torch.empty(T, dtype=torch.int32, device=dev)
+        torch.empty(1 << 28, device=dev).fill_(float("nan"))  # the allocator's next blocks
+        v_slot = tk.rasterize_bwd(*bargs, live_counts=live, **modes)
+        again = tk.rasterize_bwd(*bargs, **modes)
+        v_slot_p, n_live_p = tk.rasterize_bwd_plain(*bargs, **modes)
+        torch.cuda.synchronize()
+        assert torch.equal(live, kept) and int(live.sum()) == n_live_p > 0
+        assert torch.equal(v_slot.view(torch.int32), again.view(torch.int32)), "two runs differ"
+        outside = torch.cat([v_slot[:, :lead], v_slot[:, n_sorted:]], 1)
+        assert (outside.view(torch.int32) == 0).all(), "a slot outside every span is not zero"
+        if case == "all_stop":
+            assert int(live.sum()) < int(spans.sum()) * ts * ts // 8
+        if pack_grads:
+            got, want = tb.unpack_rows(v_slot, 6 + D), tb.unpack_rows(v_slot_p, 6 + D)
+            ulp = 2.0**-7 * torch.maximum(got.abs(), want.abs())
+            tol = 1e-5
+        else:
+            got, want, ulp, tol = v_slot, v_slot_p, torch.zeros_like(v_slot), 1e-4
+        assert bool(torch.isfinite(got).all())
+        for row, row_p, u in zip(got, want, ulp):
+            scale = row_p.abs().max().item()
+            assert scale > 0
+            assert bool(((row - row_p).abs() <= torch.clamp(u, min=tol * scale)).all())
+
+
+@pytest.mark.gpu
 def test_rasterize_gradients_match_the_cpu_on_the_card():
     """The whole backward (K2, unsort, K5, un-permute) on the card against
     the plain versions on the CPU, and bit-equal between two runs."""
@@ -381,9 +465,12 @@ def test_rasterize_gradients_match_the_cpu_on_the_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [1, 4, 32])
 def test_surfel_kernels_match_plain_versions_on_the_card(D):
-    """K8 and K9 exact, K6a bit for bit, K6b within 1e-4 of each row's
-    largest entry and with K6a's live pairs, on a 2DGS scene on the card
-    (D = 32 stages more than 48 KB of shared memory in K6b)."""
+    """K8 (with and without its table) and K9 (the record gather and
+    align_rows) exact, the record gather equal to the old route (K8's field
+    copy, then align_rows through the sort) on padded and unpadded records,
+    K6a bit for bit, K6b within 1e-4 of each row's largest entry and with
+    K6a's live pairs, on a 2DGS scene on the card (D = 32 stages more than
+    48 KB of shared memory in K6b)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from gsplat_tpu_torch.ops import gather_kernel as tg
@@ -410,13 +497,26 @@ def test_surfel_kernels_match_plain_versions_on_the_card(D):
     table = torch.cat([m2.reshape(E, 2), M.reshape(E, 9), torch.rand(E, 1, generator=g, device=dev),
                        torch.rand(E, D - 1, generator=g, device=dev), depths.reshape(E, 1),
                        nrm.reshape(E, 3)], dim=1)
-    table = torch.where((plan.cnt > 0)[:, None], table, 0.0).t().contiguous()
+    table = torch.where((plan.cnt > 0)[:, None], table, 0.0)
     rect = torch.stack([plan.tminx, plan.tminy, plan.w_rect, plan.im]).contiguous()
-    args = (plan.cum_in, rect, depths.reshape(E).contiguous(), table, plan.n_slots, cap, tw,
-            tw * th, T)
+    args = (plan.cum_in, rect, depths.reshape(E).contiguous(), table.t().contiguous(),
+            plan.n_slots, cap, tw, tw * th, T)
     got, want = tg.expand_emission_aabb(*args), tg.expand_emission_aabb_plain(*args)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    fields_s, bounds, order, _ = tr.expand_sort_align(table, depths.reshape(E), plan, cap, tw, th, C)
+    bare = tg.expand_emission_aabb(*args[:3], None, *args[4:])
+    assert all(torch.equal(x, y) for x, y in zip(bare[:3], got[:3])) and bare[3] is None
+    padded = tr.gaussian_records([table], torch.ones_like(table[:, :1], dtype=torch.bool))
+    assert padded.stride(0) % 4 == 0 and torch.equal(padded, table)
+    fields_s, bounds, order, flat = tr.expand_sort_align(padded, depths.reshape(E), plan, cap, tw,
+                                                         th, C)
+    assert torch.equal(flat, got[2])
+    old_route = tg.align_rows(got[3], order.to(torch.int32))
+    assert torch.equal(fields_s.view(torch.int32), old_route.view(torch.int32))
+    for records in (padded, table):  # 16-byte and 4-byte loads
+        args9 = (records, flat, order, bounds[T:])
+        fields9 = tg.gather_records(*args9)
+        assert torch.equal(fields9.view(torch.int32), tg.gather_records_plain(*args9).view(torch.int32))
+        assert torch.equal(fields9.view(torch.int32), fields_s.view(torch.int32))
     src = order.to(torch.int32)
     src[::7] = -1  # padding columns read as 0
     emitted = got[3]
@@ -443,6 +543,39 @@ def test_surfel_kernels_match_plain_versions_on_the_card(D):
     for row, row_p in zip(v_slot, v_slot_p):
         assert (row - row_p).abs().max().item() <= 1e-4 * row_p.abs().max().item()
     assert (v_slot[:, int(bounds[-1]):] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1000, 12289, 1 << 16], ids=["truncated", "ragged", "roomy"])
+def test_k8_search_brackets_on_the_card(cap):
+    """K8 with and without its table against its plain version where its
+    per-CTA search brackets are stressed: a capacity that truncates the
+    slots (inside a CTA), one that ends a slot into a CTA, and one with
+    room, on culled and one-tile gaussians (one slot each) beside wide
+    ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    I, N, tw, th = 2, 700, 13, 9
+    m2 = torch.rand(I, N, 2, generator=g, device=dev) * torch.tensor([16.0 * tw, 16.0 * th],
+                                                                      device=dev)
+    radii = (torch.rand(I, N, 2, generator=g, device=dev) * 40).to(torch.int32)
+    radii[:, ::5] = 0  # culled: one dummy slot each
+    radii[:, 1::7] = 1  # a tile or two each
+    plan = tr.make_emission_plan(m2, radii, 16, tw, th, cap)
+    assert bool(plan.overflow) == (cap == 1000)
+    E, T = I * N, I * tw * th
+    rect = torch.stack([plan.tminx, plan.tminy, plan.w_rect, plan.im]).contiguous()
+    depth = torch.rand(E, generator=g, device=dev) + 0.5
+    table = torch.randn(19, E, generator=g, device=dev)
+    for tab in (None, table):
+        args = (plan.cum_in, rect, depth, tab, plan.n_slots, cap, tw, tw * th, T)
+        got, want = tg.expand_emission_aabb(*args), tg.expand_emission_aabb_plain(*args)
+        torch.cuda.synchronize()
+        assert all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.gpu
@@ -493,7 +626,7 @@ def test_eval3d_kernels_match_plain_versions_on_the_card(D, hit, normals):
     rows.append(cols)
     if normals:
         rows.append(torch.nn.functional.normalize(torch.randn(E, 3, generator=g, device=dev), dim=1))
-    table = torch.where((plan.cnt > 0)[:, None], torch.cat(rows, 1), 0.0).t().contiguous()
+    table = torch.where((plan.cnt > 0)[:, None], torch.cat(rows, 1), 0.0)
     fields, bounds, _, _ = tr.expand_sort_align(table, depths.reshape(E), plan, cap, tw, th, C)
     T = C * tw * th
     geo = (C, tw, th, Wd, Hd, hit, normals)
@@ -594,7 +727,7 @@ def _surfel_inputs(dev, means, quats, scales, op, D, Wd, Hd, g):
     table = torch.cat([m2.reshape(E, 2), M.reshape(E, 9), op[:, None],
                        torch.rand(E, D - 1, generator=g, device=dev), depths.reshape(E, 1),
                        nrm.reshape(E, 3)], dim=1)
-    table = torch.where((plan.cnt > 0)[:, None], table, 0.0).t().contiguous()
+    table = torch.where((plan.cnt > 0)[:, None], table, 0.0)
     fields, bounds, _, _ = tr.expand_sort_align(table, depths.reshape(E), plan, cap, tw, th, 1)
     return fields, bounds, (1, tw, th, Wd, Hd)
 

@@ -232,7 +232,7 @@ def test_plain_composite_on_a_tile_subset_and_any_batching(projected):
     table = torch.cat([_t(p["m2"]).reshape(E, 2), _t(p["M"]).reshape(E, 9),
                        _t(p["op"]).reshape(E, 1), _t(p["feats"]).reshape(E, 4),
                        _t(p["nrm"]).reshape(E, 3)], 1)
-    table = torch.where((plan.cnt > 0)[:, None], table, 0.0).t().contiguous()
+    table = torch.where((plan.cnt > 0)[:, None], table, 0.0)
     fields, bounds, _, _ = tr.expand_sort_align(table, _t(p["d"]).reshape(E), plan, 8192, tw, th, C)
     args = (fields, bounds, C, tw, th, W, H)
     full = t2k.rasterize2d_fwd_plain(*args)

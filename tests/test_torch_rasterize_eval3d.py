@@ -176,7 +176,7 @@ def _slot_tables(s, hit, normals):
     if normals:
         rows.append(quat_to_rotmat(_t(s["quats"]))[:, :, 2])
     table = torch.cat(rows, 1).repeat(I, 1)
-    table = torch.where((plan.cnt > 0)[:, None], table, 0.0).t().contiguous()
+    table = torch.where((plan.cnt > 0)[:, None], table, 0.0)
     depth = torch.where(plan.cnt > 0, _t(s["depths"]).reshape(E), 0.0)
     fields, bounds, _, _ = expand_sort_align(table, depth, plan, cap, tw, th, I)
     return fields, bounds, _t(s["rays"]).contiguous(), (I, tw, th, W, H, hit, normals), D

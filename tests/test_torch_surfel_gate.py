@@ -47,7 +47,7 @@ def _fields(means, quats, scales, op, seed, width=W, height=H):
     table = torch.cat([m2.reshape(E, 2), M.reshape(E, 9), op[:, None],
                        torch.rand(E, D - 1, generator=g), depths.reshape(E, 1),
                        nrm.reshape(E, 3)], dim=1)
-    table = torch.where((plan.cnt > 0)[:, None], table, 0.0).t().contiguous()
+    table = torch.where((plan.cnt > 0)[:, None], table, 0.0)
     fields, bounds, _, _ = tr.expand_sort_align(table, depths.reshape(E), plan, cap, tw, th, 1)
     return fields, bounds, (1, tw, th, width, height)
 
@@ -251,7 +251,7 @@ def test_reject_takes_most_gated_pairs_of_the_2dgs_scene():
     colors = torch.from_numpy(s["colors"])[None].expand(C, N, 3).reshape(E, 3)
     table = torch.cat([m2.reshape(E, 2), M.reshape(E, 9), op, colors, depths.reshape(E, 1),
                        nrm.reshape(E, 3)], 1)
-    table = torch.where((plan.cnt > 0)[:, None], table, 0.0).t().contiguous()
+    table = torch.where((plan.cnt > 0)[:, None], table, 0.0)
     fields, bounds, _, _ = tr.expand_sort_align(table, depths.reshape(E), plan, 8192, tw, th, C)
     geo = (C, tw, th, W2, H2)
     passes, rejected, reached = _pairs(fields, bounds, geo)

@@ -75,13 +75,16 @@ def _jax_flat(runner):
 
 @pytest.fixture(scope="module")
 def both(tiny_npz, tmp_path_factory):
-    os.environ["GSPLAT_TPU_TEST_DATA"] = tiny_npz
     from simple_trainer import Config as JConfig
     from simple_trainer import Runner
 
     out = tmp_path_factory.mktemp("out")
-    runner = Runner(JConfig(**_cfg_kw(out / "jax", capacity=512, pack_payload=False,
-                                      pack_grads=False, tb_every=0)))
+    # the JAX runner reads its npz when it is built; the variable must not
+    # outlive this fixture, or a later test file finds this tiny scene
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GSPLAT_TPU_TEST_DATA", tiny_npz)
+        runner = Runner(JConfig(**_cfg_kw(out / "jax", capacity=512, pack_payload=False,
+                                          pack_grads=False, tb_every=0)))
     trainer = Trainer(Config(**_cfg_kw(out / "torch", pack_payload=False, pack_grads=False)),
                       data=_tiny_data(), device="cpu")
     return runner, trainer

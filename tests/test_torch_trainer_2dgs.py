@@ -43,16 +43,20 @@ def _kw(result_dir, **kw):
 def runners(tmp_path_factory):
     out = tmp_path_factory.mktemp("data")
     np.savez(out / "tiny.npz", **_tiny_data())
-    os.environ["GSPLAT_TPU_TEST_DATA"] = str(out / "tiny.npz")
     from simple_trainer import Config as JConfig
     from simple_trainer import Runner
     from simple_trainer_2dgs import Config as J2Config
     from simple_trainer_2dgs import Runner2DGS
 
     surf = dict(normal_start_iter=0, dist_start_iter=0)
-    j2 = Runner2DGS(J2Config(**_kw(out / "j2", tb_every=0, **surf)))
+    # the JAX runners read their npz when they are built; the variable must
+    # not outlive this fixture, or a later test file finds this tiny scene
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GSPLAT_TPU_TEST_DATA", str(out / "tiny.npz"))
+        j2 = Runner2DGS(J2Config(**_kw(out / "j2", tb_every=0, **surf)))
+        j3 = Runner(JConfig(**_kw(out / "j3", tb_every=0, pack_payload=False,
+                                  pack_grads=False)))
     t2 = Trainer2DGS(Config2DGS(**_kw(out / "t2", **surf)), data=_tiny_data(), device="cpu")
-    j3 = Runner(JConfig(**_kw(out / "j3", tb_every=0, pack_payload=False, pack_grads=False)))
     # the JAX runner's flags on the port too: its Config packs by default
     t3 = Trainer(Config(**_kw(out / "t3", pack_payload=False, pack_grads=False)),
                  data=_tiny_data(), device="cpu")

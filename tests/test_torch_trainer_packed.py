@@ -17,7 +17,6 @@ entry.  The update on the same gradients is one float32 rounding apart, as
 in tests/test_torch_trainer.py.
 """
 
-import os
 import sys
 from pathlib import Path
 
@@ -34,10 +33,10 @@ from gsplat_tpu_torch.scene import train_state_from_numpy, train_state_to_numpy
 from gsplat_tpu_torch.trainer import Config, Trainer
 
 
-def test_one_packed_step_matches_the_jax_trainer(tmp_path):
+def test_one_packed_step_matches_the_jax_trainer(tmp_path, monkeypatch):
     path = tmp_path / "tiny.npz"
     np.savez(path, **_tiny_data())
-    os.environ["GSPLAT_TPU_TEST_DATA"] = str(path)
+    monkeypatch.setenv("GSPLAT_TPU_TEST_DATA", str(path))
     from simple_trainer import Config as JConfig
     from simple_trainer import Runner
 
