@@ -9,8 +9,8 @@ Run from the repository root, on a machine with a CUDA card:
 Phases:
   1. print the card's name and power limit (nvidia-smi), build the kernels
      from csrc/ (one nvcc per source, in parallel) and print the seconds,
-     then the registers and spills nvcc reports for K2, K5, K6a, K6b and
-     K9 (and any spill of another kernel);
+     then the registers and spills nvcc reports for K1, K7b, K2, K5, K6a,
+     K6b and K9 (and any spill of another kernel);
   2. serving: a synthetic scene of the benchmark's size (2,794,625
      gaussians, SH degree 3, 25 grid cells of 111,785 points, made from a
      fixed seed) goes through splats_from_numpy -> GaussianScene ->
@@ -24,6 +24,11 @@ Phases:
      path's class (mean < 5e-3, 99.9% < 0.05);
   3. reference: a small crop renders on the card and on the CPU (plain
      versions), exact and fast, and the images must agree (band tolerance);
+     then the same crop at 960x540 with 64 colour channels, which the
+     composites take in two groups of 32, renders and takes the backward of
+     a squared loss on the card and on the CPU: images in the band,
+     gradients in the gradient reference's band (phase 7), K1 and K2
+     launched once per group;
   4. kernels: the rasterizer's stages rerun on request 0's camera, exact
      and packed, and must give that path's request-0 image bit for bit; K3,
      K4 and K4 packed against their plain versions on those inputs (exact),
@@ -124,15 +129,19 @@ Phases:
      loss must fall.  Then 3 more steps are timed whole and traced;
  15. lidar kernels, on one more AV step's lidar render (the hit channel
      without normals, D = 2, lidar rays): the checks of phase 13 on every
-     tile of the range image (K9's `av_check`); and K2 (float32) on the same
-     step's 3 camera renders, against its plain version on sampled tiles
-     as in phase 8, timed: the `kernels` line's K2 record is this one, its
-     path's, with the 4k training step's numbers under `4k_check`.  The
+     tile of the range image (K9's `av_check`); K1 (float32) on the same
+     step's 3 camera renders against its plain version on every tile
+     (within 1e-4), timed (K1's `av_check`, its path's, beside the 4k
+     exact request's record); and K2 (float32) on those renders, against
+     its plain version on sampled tiles as in phase 8, timed: the `kernels`
+     line's K2 record is this one, its path's, with the 4k training step's
+     numbers under `4k_check`.  The
      `kernels` line keeps the 3DGUT shapes' numbers for K7a and K7b, the
      larger error of the two checks, and the lidar's under `av_check`.
 It prints one `kernels` JSON line (14 kernels, each with its launches on
-every path and `launches` on its own: MAIN_PATH) and, last, the `ok` JSON
-line; any failure exits non-zero without it.  The script never falls back
+every path and `launches` on its own: MAIN_PATH; K1's records also carry
+`exp_bound_ms`, one exp per evaluated pair on the special-function units)
+and, last, the `ok` JSON line; any failure exits non-zero without it.  The script never falls back
 to the CPU.
 """
 
@@ -1012,6 +1021,57 @@ def gradient_reference(dev, raw, n_cell, check_wh, log, packed: bool) -> None:
     log(f"gradient reference (packed {packed}): {len(sub['means'])} gaussians at "
         f"{ref_wh[0]}x{ref_wh[1]}, loss {a['loss']:.6f}; max |d| / max |g| " + json.dumps(worst))
     require(not faults, "gradient reference: " + "; ".join(faults))
+
+
+CHANNELS_D = 64  # channels of the grouped-render check: two launches of each composite
+
+
+def channels_check(dev, raw, n_cell, check_wh, log) -> None:
+    """rasterization() at CHANNELS_D colour channels, which the composites
+    take in groups of 32, on `dev` and on the CPU (plain versions): one
+    render and the backward of a squared loss on the crop of the gradient
+    reference at `check_wh`.  The images within the band of the reference
+    crop, the gradients within the exact gradient reference's band; on the
+    card, K1 and K2 each launched once per group."""
+    sub = {k: v[: max(n_cell // 8, 1)] for k, v in raw.items()}
+    W, H = check_wh
+    vms, K = look_at_cameras(sub["means"], 1, W, H)
+    rng = np.random.default_rng(SEED)
+    colors = rng.uniform(0.0, 1.0, (len(sub["means"]), CHANNELS_D)).astype(np.float32)
+    tgt = rng.uniform(0.0, 1.0, (1, H, W, CHANNELS_D)).astype(np.float32)
+    names = ("means", "quats", "scales", "opacities", "colors")
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        f = lambda x: torch.as_tensor(x, device=d)
+        leaves = [f(sub["means"]), f(sub["quats"]), torch.exp(f(sub["scales"])),
+                  torch.sigmoid(f(sub["opacities"])), f(colors)]
+        leaves = [x.requires_grad_() for x in leaves]
+        before = (rk.rasterize_fwd.launches, rk.rasterize_bwd.launches)
+        img, alpha, meta = rasterization(*leaves, f(vms), f(K[None]), W, H,
+                                         isect_capacity=16 * len(sub["means"]), **RENDER_KW)
+        (((img - f(tgt)) ** 2).sum() + 0.3 * alpha.sum()).backward()
+        sync(d)
+        require(not bool(meta["isect_overflow"]), "channels check: isect_overflow")
+        if d.type == "cuda":
+            launched = (rk.rasterize_fwd.launches - before[0], rk.rasterize_bwd.launches - before[1])
+            require(launched == (2, 2), f"channels check: K1 and K2 launched {launched} times, "
+                    f"not once per group of 32 channels")
+        outs.append((img.detach().cpu(), alpha.detach().cpu(),
+                     {k: x.grad.cpu() for k, x in zip(names, leaves)}))
+    (ci, ca, cg), (pi, pa, pg) = outs
+    require(ci.shape == (1, H, W, CHANNELS_D) and float(pa.mean()) > 0, "channels check: empty")
+    band_close(ci, pi, f"channels check: {CHANNELS_D}-channel image")
+    band_close(ca, pa, f"channels check: alphas")
+    worst = {}
+    for k in names:
+        scale = float(pg[k].abs().max())
+        diff = (cg[k] - pg[k]).abs()
+        worst[k] = float(diff.max()) / scale
+        require(scale > 0 and bool(torch.isfinite(cg[k]).all()), f"channels check: {k} degenerate")
+        require(float((diff > 3e-4 * scale).float().mean()) < 0.01 and worst[k] < 5e-2,
+                f"channels check: gradient of {k} off by {worst[k]:.3g} of its largest entry")
+    log(f"channels check: {len(sub['means'])} gaussians, {CHANNELS_D} channels at {W}x{H}, "
+        f"render and backward agree with the CPU; max |d| / max |g| " + json.dumps(worst))
 
 
 def training_kernels_and_profile(tr, targets, launches, serving_err, timer, log):
@@ -1993,7 +2053,7 @@ def av_phase(dev, timer, log):
     probes = {name: Probe(r3d, name, on_card) for name in ("rasterize_eval3d_fwd",
                                                           "rasterize_eval3d_bwd")}
     probes.update({name: Probe(rz, name, on_card) for name in ("gather_records",
-                                                              "rasterize_bwd")})
+                                                              "rasterize_bwd", "rasterize_fwd")})
     step_fn(first_inputs[0])
     for p in probes.values():
         p.restore()
@@ -2005,6 +2065,7 @@ def av_phase(dev, timer, log):
             f"the AV cameras' K2 ran in the mode {k2_kw}, not float32")
     rec9 = check_gather_records(args.pop("gather_records"), launches, timer, log,
                                 "AV lidar render")
+    rec1 = check_k1_av(args.pop("rasterize_fwd"), launches, timer, log)
     k2 = args.pop("rasterize_bwd")
     counts = (k2[1][1:] - k2[1][:-1]).long()
     tiles, _ = sampled_tiles(counts, k2[2], k2[4], k2[5], k2[6], k2[7], dev)
@@ -2018,7 +2079,39 @@ def av_phase(dev, timer, log):
     records = check_eval3d_kernels(dev, args, launches, timer, log, "AV lidar render",
                                    every_tile=True)
     log("av eval3d kernels " + json.dumps(records))
-    return launches, records, rec9, rec2
+    return launches, records, rec9, rec2, rec1
+
+
+def check_k1_av(k1, launches, timer, log):
+    """K1 (float32) on an AV step's 3 camera renders, its own path: against
+    its plain version on every tile (within 1e-4, as at the serving shape),
+    timed, with its bound; the `kernels` line's K1 record carries it as
+    `av_check`."""
+    fields, bounds, n_images, tile, tw, th, W, H = k1
+    t1 = time.perf_counter()
+    want = rk.rasterize_fwd_plain(*k1)
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    got = rk.rasterize_fwd(*k1)
+    e = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    require(e <= 1e-4, f"rasterize_fwd on the AV cameras: max |d| {e} > 1e-4")
+    del got, want
+    pairs = evaluated_pairs(*k1)
+    D, n_slots = fields.shape[0] - 6, int(bounds[-1])
+    rec = kernel_record("rasterize_fwd", launches["rasterize_fwd"], e,
+                        timer(lambda: rk.rasterize_fwd(*k1), 20), plain_ms,
+                        4 * (fields.shape[0] * n_slots + bounds.shape[0] + n_images * W * H * (D + 1)),
+                        K1_FLOP_PER_PAIR * pairs)
+    rec["exp_bound_ms"] = exp_bound_ms(pairs)
+    log(f"rasterize_fwd on the AV cameras ({n_images} at {W}x{H}, tile {tile}): max |d| {e:.3g}, "
+        f"{pairs} pairs evaluated, {rec['ms']:.4f} ms")
+    return rec
+
+
+def exp_bound_ms(pairs: int) -> float:
+    """The least time for one exp per evaluated pair on the special-function
+    units (16 a clock per SM, 132 SMs at the 1.98 GHz boost clock): a bound
+    of K1 beside the float32 rate's, which counts the exp as one operation."""
+    return pairs / (16 * 132 * 1.98e9) * 1e3
 
 
 class Serving:
@@ -2161,6 +2254,7 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         require(float(outs[1][1].mean()) > 0, "reference image is empty")
     log(f"reference: {len(sub['means'])} gaussians at {ref_wh[0]}x{ref_wh[1]} agree with the "
         f"CPU, exact and fast")
+    channels_check(dev, raw, n_cell, check_wh, log)
 
     # Kernels against their plain versions, on request 0's own inputs: the
     # stages rerun on its camera must give its projection, plan and image.
@@ -2252,6 +2346,8 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
                 err[name], timer(lambda: fn(*args, **kw), 20),
                 timer(lambda: plain(*args, **kw), 1, warm=False),
                 *work[name]))
+            if name.startswith("rasterize_fwd"):
+                records[-1]["exp_bound_ms"] = exp_bound_ms(pairs)
         log(f"rasterize_fwd{'' if R == F else ' packed'} at {W}x{H}: {pairs} (pixel, slot) "
             f"pairs evaluated, {n_slots} slots")
     del serve_in, serve_pk
@@ -2286,7 +2382,7 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     # The AV trainer: cameras and a spinning lidar on a street scene.
-    av_launches, av_records, av_k9, av_k2 = av_phase(dev, timer, log)
+    av_launches, av_records, av_k9, av_k2, av_k1 = av_phase(dev, timer, log)
     for rec, av_rec in zip(gut_records, av_records):
         rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
         rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2298,6 +2394,10 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         if rec["name"] == "gather_records":
             rec["3dgut_check"] = {k: gut_k9[k] for k in keys}
             rec["av_check"] = {k: av_k9[k] for k in keys}
+    for rec in records:  # K1 (float32): the 4k exact request's, and its AV path's
+        if rec["name"] == "rasterize_fwd":
+            rec["av_check"] = {k: av_k1[k] for k in keys + ("exp_bound_ms",)}
+            rec["max_abs_err"] = max(rec["max_abs_err"], av_k1["max_abs_err"])
     for i, rec in enumerate(train_records):
         if rec["name"] == "rasterize_bwd":
             av_k2["4k_check"] = {k: rec[k] for k in keys + ("bytes_bound_ms",
@@ -2376,7 +2476,9 @@ def ptxas_summary(report: str, keep) -> list:
 def log_registers(log) -> None:
     """Registers and spills of the kernels redesigned last, from the build's
     own nvcc report, and any spill anywhere."""
-    for name, keep in (("segsum", lambda e: True),
+    for name, keep in (("rasterize_fwd", lambda e: re.search(r"ILi(3|32)E", e)),
+                       ("rasterize_eval3d_bwd", lambda e: re.search(r"ILi(1|3|32)E", e)),
+                       ("segsum", lambda e: True),
                        ("rasterize_bwd", lambda e: re.search(r"ILi(3|32)E", e)),
                        ("align", lambda e: True),
                        ("rasterize2d_fwd", lambda e: re.search(r"ILi(1|4|32)E", e)),

@@ -66,23 +66,25 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0, fl
   return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2));
 }
 
-// Evaluate the slot whose field f sits at slot[f * stride] on the ray `r`
-// with transmittance T.  Returns true if the pair would take T to <= 1e-4:
-// the pixel stops for good and this gaussian is excluded.  Otherwise returns
+// Evaluate the slot whose field f is `field(f)` on the ray `r` with
+// transmittance T.  Returns true if the pair would take T to <= 1e-4: the
+// pixel stops for good and this gaussian is excluded.  Otherwise returns
 // false, after calling `on_live(response, next_T)` if the pair contributes
-// and nothing if it is gated (the shape of surfel.cuh).
-template <class OnLive>
-__device__ __forceinline__ bool composite_ray(const Ray& r, const float* slot, int stride,
-                                              bool hit, float T, OnLive&& on_live) {
+// and nothing if it is gated (the shape of surfel.cuh).  `field` is called
+// with constants once unrolled, so the fields may sit in shared memory or in
+// the caller's registers: the operations are the same either way.
+template <class Field, class OnLive>
+__device__ __forceinline__ bool composite_ray_fields(const Ray& r, Field&& field, bool hit,
+                                                     float T, OnLive&& on_live) {
   Response s;
-  const float x0 = slot[(kRowX + 0) * stride];
-  const float x1 = slot[(kRowX + 1) * stride];
-  const float x2 = slot[(kRowX + 2) * stride];
+  const float x0 = field(kRowX + 0);
+  const float x1 = field(kRowX + 1);
+  const float x2 = field(kRowX + 2);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float m0 = slot[(kRowM + 3 * k + 0) * stride];
-    const float m1 = slot[(kRowM + 3 * k + 1) * stride];
-    const float m2 = slot[(kRowM + 3 * k + 2) * stride];
+    const float m0 = field(kRowM + 3 * k + 0);
+    const float m1 = field(kRowM + 3 * k + 1);
+    const float m2 = field(kRowM + 3 * k + 2);
     s.u[k] = dot3(m0, m1, m2, r.d[0], r.d[1], r.d[2]);
     s.g[k] = __fsub_rn(dot3(m0, m1, m2, r.o[0], r.o[1], r.o[2]), dot3(m0, m1, m2, x0, x1, x2));
   }
@@ -96,7 +98,7 @@ __device__ __forceinline__ bool composite_ray(const Ray& r, const float* slot, i
   const float gray = dot3(s.c[0], s.c[1], s.c[2], s.c[0], s.c[1], s.c[2]);
   s.hit_t = -dot3(s.uh[0], s.uh[1], s.uh[2], s.g[0], s.g[1], s.g[2]);
   s.vis = expf(__fmul_rn(-0.5f, gray));
-  const float raw = __fmul_rn(slot[kRowOp * stride], s.vis);
+  const float raw = __fmul_rn(field(kRowOp), s.vis);
   s.clamped = !(raw < kMaxAlpha);
   s.alpha = raw > kMaxAlpha ? kMaxAlpha : raw;  // a NaN stays NaN and is gated
   if (!(s.hit_t >= 0.0f)) return false;              // behind the ray's origin: gated
@@ -106,15 +108,23 @@ __device__ __forceinline__ bool composite_ray(const Ray& r, const float* slot, i
   s.q = 0.0f;
   s.hd = 0.0f;
   if (hit) {
-    const float b0 = __fmul_rn(slot[(kRowScale + 0) * stride], s.uh[0]);
-    const float b1 = __fmul_rn(slot[(kRowScale + 1) * stride], s.uh[1]);
-    const float b2 = __fmul_rn(slot[(kRowScale + 2) * stride], s.uh[2]);
+    const float b0 = __fmul_rn(field(kRowScale + 0), s.uh[0]);
+    const float b1 = __fmul_rn(field(kRowScale + 1), s.uh[1]);
+    const float b2 = __fmul_rn(field(kRowScale + 2), s.uh[2]);
     const float bb = dot3(b0, b1, b2, b0, b1, b2);
     s.q = __fsqrt_rn(bb < 1e-24f ? 1e-24f : bb);
     s.hd = __fmul_rn(s.hit_t, s.q);
   }
   on_live(s, next_T);
   return false;
+}
+
+// The same, for the slot whose field f sits at slot[f * stride].
+template <class OnLive>
+__device__ __forceinline__ bool composite_ray(const Ray& r, const float* slot, int stride,
+                                              bool hit, float T, OnLive&& on_live) {
+  return composite_ray_fields(
+      r, [&](int f) { return slot[f * stride]; }, hit, T, static_cast<OnLive&&>(on_live));
 }
 
 // The sum over a CTA of a per-thread count, through __syncthreads_count,

@@ -169,8 +169,10 @@ def fully_fused_projection(
     strict frustum test.
     """
     if camera_model == "lidar":
-        raise NotImplementedError(
-            "camera_model='lidar' belongs to the cameras/UT slice (ROADMAP Queue 1 item 9)"
+        # the EWA projection has no lidar model, as in the JAX package
+        raise ValueError(
+            "unsupported camera_model: 'lidar' (render a lidar through "
+            "rasterization(..., camera_model='lidar', with_ut=True, with_eval3d=True))"
         )
     if camera_model not in _CAMERAS:
         raise ValueError(f"unsupported camera_model: {camera_model!r}")

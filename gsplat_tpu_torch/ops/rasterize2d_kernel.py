@@ -35,7 +35,7 @@ import torch
 from .. import _build
 from .._device import check_kernel_device
 from .projection import ALPHA_THRESHOLD, MAX_ALPHA, TRANSMITTANCE_THRESHOLD
-from .rasterize_kernel import MAX_CHANNELS, _counts_ptr, tile_sets
+from .rasterize_kernel import MAX_CHANNELS, _add_groups, _counts_ptr, channel_groups, tile_sets
 
 TILE_2D = 16  # the 2DGS composite's only tile size
 PLAIN_BUDGET = 1 << 22  # (tile, pixel, slot) elements per batch of the plain versions
@@ -267,13 +267,20 @@ def _check_args(name, fields, bounds, n_images, tiles_w, tiles_h):
     if fields.dim() != 2 or fields.dtype != torch.float32 or not fields.is_contiguous():
         raise ValueError("fields must be a contiguous float32 [15+D, P] tensor")
     D = fields.shape[0] - N_FIXED_ROWS
-    if not 1 <= D <= MAX_CHANNELS:
-        raise ValueError(f"{name} takes 1 to {MAX_CHANNELS} colour channels, got D={D}")
+    if D < 1:
+        raise ValueError(f"{name} takes at least one colour channel, got D={D}")
     n_tiles = n_images * tiles_w * tiles_h
     if bounds.shape != (n_tiles + 1,) or bounds.dtype != torch.int32:
         raise ValueError(f"bounds must be int32 [{n_tiles + 1}], got {bounds.dtype} "
                          f"{tuple(bounds.shape)}")
     return D, n_tiles
+
+
+def _group_fields(fields: torch.Tensor, D: int, c0: int, c1: int) -> torch.Tensor:
+    """The slot rows of colour channels [c0, c1) with the 12 geometry rows
+    before them and the 3 normal rows after them."""
+    return torch.cat([fields[:ROW_COLOR], fields[ROW_COLOR + c0 : ROW_COLOR + c1],
+                      fields[ROW_COLOR + D :]])
 
 
 def rasterize2d_fwd(
@@ -300,9 +307,23 @@ def rasterize2d_fwd(
     masked pairs that the exact path, run on them too, would not have gated
     (0 unless the reject's margin is wrong).  Any counter makes the kernel
     count.
+
+    More than MAX_CHANNELS colour channels (the depth channel, last,
+    counted) composite in `channel_groups` of the colours, each with the
+    geometry and normal rows; the depth channel rides in the last group,
+    which gives the normals, distortion and median depth.  T, the median
+    slot and the counters come from the first group.
     """
     D, n_tiles = _check_args("rasterize2d_fwd", fields, bounds, n_images, tiles_w, tiles_h)
     counters = (pair_counts, eval_counts, exact_counts, unsound_counts)
+    if D > MAX_CHANNELS:
+        outs = [rasterize2d_fwd(_group_fields(fields, D, c0, c1), bounds, n_images, tiles_w,
+                                tiles_h, width, height,
+                                *(counters if c0 == 0 else (None,) * len(counters)))
+                for c0, c1 in channel_groups(D)]
+        out = torch.cat([o[0][..., : o[0].shape[-1] - 5] for o in outs] + [outs[-1][0][..., -5:]],
+                        dim=-1)
+        return out, outs[0][1], outs[0][2]
     if not check_kernel_device("rasterize2d_fwd", fields, bounds):
         if any(c is not None for c in counters):
             raise ValueError("pair_counts, eval_counts, exact_counts and unsound_counts are "
@@ -425,7 +446,11 @@ def rasterize2d_bwd(
     """Per-slot gradients of the 15+D field rows at the sorted positions,
     [15+D, P] f32; slots outside every span are zero.  The same inputs give
     the same bits from run to run.  On the card, `live_counts` receives each
-    tile's count of live (pixel, slot) pairs."""
+    tile's count of live (pixel, slot) pairs.  More than MAX_CHANNELS colour
+    channels run in the forward's `channel_groups`: each group takes its
+    colours' cotangents, the last also those of the normals, distortion and
+    median, the first v_t (`live_counts` from the first); the geometry rows'
+    gradients add over the groups in float32, in group order."""
     D, n_tiles = _check_args("rasterize2d_bwd", fields, bounds, n_images, tiles_w, tiles_h)
     img = (n_images, height, width)
     for name, t, shape, dtype in (("v_pix", v_pix, img + (D + 5,), torch.float32),
@@ -436,6 +461,22 @@ def rasterize2d_bwd(
         if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} {shape} tensor, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if D > MAX_CHANNELS:
+        groups = channel_groups(D)
+        tail_v, tail_out = v_pix[..., D:], pix_out[..., D:]  # normals, distortion, median
+        parts = []
+        for c0, c1 in groups:
+            last = c1 == D
+            v_g = torch.cat([v_pix[..., c0:c1], tail_v if last else torch.zeros_like(tail_v)],
+                            dim=-1)
+            parts.append(rasterize2d_bwd(
+                _group_fields(fields, D, c0, c1), bounds, n_images, tiles_w, tiles_h, width,
+                height, v_g, v_t if c0 == 0 else torch.zeros_like(v_t),
+                torch.cat([pix_out[..., c0:c1], tail_out], dim=-1), t_final, med_slot,
+                live_counts if c0 == 0 else None))
+        # the normal rows from the last group, which alone took their cotangents
+        return torch.cat([_add_groups(parts, ROW_COLOR)] + [p[ROW_COLOR:-3] for p in parts]
+                         + [parts[-1][-3:]])
     if not check_kernel_device("rasterize2d_bwd", fields, bounds, v_pix, v_t, pix_out, t_final,
                                med_slot):
         if live_counts is not None:

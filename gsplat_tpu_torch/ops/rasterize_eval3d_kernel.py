@@ -40,7 +40,7 @@ from .. import _build
 from .._device import check_kernel_device
 from .projection import ALPHA_THRESHOLD, MAX_ALPHA, TRANSMITTANCE_THRESHOLD
 from .rasterize2d_kernel import PLAIN_BUDGET, _batches
-from .rasterize_kernel import MAX_CHANNELS, _counts_ptr
+from .rasterize_kernel import MAX_CHANNELS, _add_groups, _counts_ptr, channel_groups
 
 TILE_3D = 16  # the eval3d composite's only tile size
 ROW_X, ROW_M, ROW_OP, ROW_SCALE = 0, 3, 12, 13
@@ -217,8 +217,8 @@ def _check_args(name, fields, bounds, rays, n_images, tiles_w, tiles_h, width, h
     if fields.dim() != 2 or fields.dtype != torch.float32 or not fields.is_contiguous():
         raise ValueError("fields must be a contiguous float32 [F, P] tensor")
     D = fields.shape[0] - ROW_SCALE - 3 * bool(use_hit_distance) - 3 * bool(return_normals)
-    if not 1 <= D <= MAX_CHANNELS:
-        raise ValueError(f"{name} takes 1 to {MAX_CHANNELS} channels, got D={D}")
+    if D < 1:
+        raise ValueError(f"{name} takes at least one channel, got D={D}")
     n_tiles = n_images * tiles_w * tiles_h
     if bounds.shape != (n_tiles + 1,) or bounds.dtype != torch.int32:
         raise ValueError(f"bounds must be int32 [{n_tiles + 1}], got {bounds.dtype} "
@@ -228,6 +228,22 @@ def _check_args(name, fields, bounds, rays, n_images, tiles_w, tiles_h, width, h
         raise ValueError(f"rays must be a contiguous float32 {shape} tensor, got "
                          f"{rays.dtype} {tuple(rays.shape)}")
     return D, n_tiles
+
+
+def _group_fields(fields: torch.Tensor, D: int, c0: int, c1: int, hit: bool,
+                  normals: bool) -> torch.Tensor:
+    """The slot rows of channels [c0, c1) with the 13 geometry rows; the
+    last group (c1 == D) also takes the scale rows (with `hit`) and the
+    normal rows (with `normals`), the other groups neither."""
+    _, color0, normal0, _ = field_layout(D, hit, normals)
+    last = c1 == D
+    rows = [fields[:ROW_SCALE]]
+    if last and hit:
+        rows.append(fields[ROW_SCALE:color0])
+    rows.append(fields[color0 + c0 : color0 + c1])
+    if last and normals:
+        rows.append(fields[normal0:])
+    return torch.cat(rows)
 
 
 def rasterize_eval3d_fwd(
@@ -249,10 +265,21 @@ def rasterize_eval3d_fwd(
     Returns (out [I, H, W, D + 3*normals] f32, T_final [I, H, W] f32).  On
     the card, `pair_counts` receives each tile's contributing (pixel, slot)
     pairs, which the backward's live pairs must equal, and `eval_counts` the
-    pairs it evaluated.
+    pairs it evaluated.  More than MAX_CHANNELS channels composite in
+    `channel_groups`, each with the geometry rows; the hit channel (the last
+    of D) and the normals ride in the last group.  T and the counters come
+    from the first group.
     """
     D, n_tiles = _check_args("rasterize_eval3d_fwd", fields, bounds, rays, n_images, tiles_w,
                              tiles_h, width, height, use_hit_distance, return_normals)
+    if D > MAX_CHANNELS:
+        hit, nrm = bool(use_hit_distance), bool(return_normals)
+        outs = [rasterize_eval3d_fwd(
+                    _group_fields(fields, D, c0, c1, hit, nrm), bounds, rays, n_images, tiles_w,
+                    tiles_h, width, height, hit and c1 == D, nrm and c1 == D,
+                    *((pair_counts, eval_counts) if c0 == 0 else (None, None)))
+                for c0, c1 in channel_groups(D)]
+        return torch.cat([o[0] for o in outs], dim=-1), outs[0][1]
     if not check_kernel_device("rasterize_eval3d_fwd", fields, bounds, rays):
         if pair_counts is not None or eval_counts is not None:
             raise ValueError("pair_counts and eval_counts are filled by the CUDA kernel only")
@@ -408,7 +435,11 @@ def rasterize_eval3d_bwd(
     f32, zero for slots outside every span; per-pixel ray gradients [I, H, W,
     6] f32).  The same inputs give the same bits from run to run.  On the
     card, `live_counts` receives each tile's count of live (pixel, slot)
-    pairs."""
+    pairs.  More than MAX_CHANNELS channels run in the forward's
+    `channel_groups`, each with its channels' cotangents (the last with the
+    normals'), v_t in the first only (`live_counts` from the first); the
+    geometry rows' and the ray gradients add over the groups in float32, in
+    group order."""
     D, n_tiles = _check_args("rasterize_eval3d_bwd", fields, bounds, rays, n_images, tiles_w,
                              tiles_h, width, height, use_hit_distance, return_normals)
     D_out = D + 3 * bool(return_normals)
@@ -418,6 +449,25 @@ def rasterize_eval3d_bwd(
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 {shape} tensor, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if D > MAX_CHANNELS:
+        hit, nrm = bool(use_hit_distance), bool(return_normals)
+        slots, v_rays = [], None
+        for c0, c1 in channel_groups(D):
+            last = c1 == D
+            end = D_out if last else c1  # the last group's channels end with the normals
+            v_g, r_g = rasterize_eval3d_bwd(
+                _group_fields(fields, D, c0, c1, hit, nrm), bounds, rays, n_images, tiles_w,
+                tiles_h, width, height, hit and last, nrm and last,
+                v_pix[..., c0:end].contiguous(), v_t if c0 == 0 else torch.zeros_like(v_t),
+                pix_out[..., c0:end].contiguous(), t_final, live_counts if c0 == 0 else None)
+            slots.append(v_g)
+            v_rays = r_g if v_rays is None else v_rays.add_(r_g)
+        # the scale rows (with hit) and the normal rows from the last group,
+        # which alone has them, around every group's channel rows
+        scale_end = ROW_SCALE + 3 * hit
+        rows = ([_add_groups(slots, ROW_SCALE), slots[-1][ROW_SCALE:scale_end]]
+                + [v[ROW_SCALE:] for v in slots[:-1]] + [slots[-1][scale_end:]])
+        return torch.cat(rows), v_rays
     if not check_kernel_device("rasterize_eval3d_bwd", fields, bounds, rays, v_pix, v_t, pix_out,
                                t_final):
         if live_counts is not None:
@@ -427,8 +477,11 @@ def rasterize_eval3d_bwd(
                                           pix_out, t_final)[:2]
     lib = _build.load("rasterize_eval3d_bwd")
     dev = fields.device
-    v_slot = torch.zeros(fields.shape, dtype=torch.float32, device=dev)
-    v_rays = torch.empty(img + (6,), dtype=torch.float32, device=dev)
+    # the kernel writes every element, zeros where no live pair reaches,
+    # when there is a tile to write them
+    alloc = torch.empty if n_tiles > 0 else torch.zeros
+    v_slot = alloc(fields.shape, dtype=torch.float32, device=dev)
+    v_rays = alloc(img + (6,), dtype=torch.float32, device=dev)
     code = lib.gs_rasterize_eval3d_bwd(
         fields.data_ptr(), fields.shape[1], bounds.contiguous().data_ptr(), rays.data_ptr(), D,
         int(use_hit_distance), int(return_normals), tiles_w, tiles_w * tiles_h, width, height,

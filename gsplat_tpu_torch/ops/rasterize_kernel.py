@@ -15,6 +15,18 @@ Pallas kernel can resume such a pixel in a later 256-slot chunk
 The backward replays the forward's decisions: the two CUDA kernels share
 `csrc/composite.cuh` and the two plain versions share `_composite_batch`.
 
+Any channel count: the kernels composite 1 to MAX_CHANNELS channels, and
+the wrappers take more in groups of MAX_CHANNELS (`channel_groups`), as
+upstream gsplat's `channel_chunk` does, on the card and on the CPU alike.
+Each group carries the geometry rows (x, y, a, b, c, op) with its colours.
+Gate, stop and T depend on the geometry only, so every group makes the same
+decisions, and a grouped forward is a single pass's, bit for bit: colours
+concatenated, T from the first group.  The backward is linear in the colour
+cotangents; each group gets its own and v_T goes to the first group only
+(the others take zeros), the geometry rows' gradients are added over the
+groups in float32 in group order, and each group's colour rows go to its
+channels.
+
 Packed modes (rasterize_pallas.py `packed=True`, :399-407, :613-624, and
 `pack_grads`, :690-709): with `packed` the slot stream is the bf16-pair
 payload of the packed emission (ops/bf16pair.py: packed_rows(D) carriers,
@@ -27,7 +39,7 @@ count in `<wrapper>.launches_packed`.
 
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,7 +49,7 @@ from .bf16pair import grad_pack_rows, pack_rows, packed_rows, unpack_payload
 from .projection import ALPHA_THRESHOLD, MAX_ALPHA, TRANSMITTANCE_THRESHOLD
 
 SIGMA_EPS_NEG = -2e-3  # the JAX kernels' tolerance for f32 noise at sigma ~ 0
-MAX_CHANNELS = 32  # the kernel is instantiated for D in [1, 32]
+MAX_CHANNELS = 32  # the kernels are instantiated for D in [1, 32]; wrappers group more
 # (tile, pixel, slot) elements per batch of the plain version
 _PLAIN_BUDGET = 1 << 24
 
@@ -187,6 +199,22 @@ def _channel_count(name, fields, packed: bool, n_channels: Optional[int]) -> int
     return n_channels
 
 
+def channel_groups(n_channels: int) -> List[Tuple[int, int]]:
+    """[c0, c1) of each group of at most MAX_CHANNELS channels, in order: the
+    launches a wrapper makes for `n_channels` channels."""
+    return [(c0, min(c0 + MAX_CHANNELS, n_channels)) for c0 in range(0, n_channels, MAX_CHANNELS)]
+
+
+def _group_fields(fields: torch.Tensor, c0: int, c1: int, packed: bool) -> torch.Tensor:
+    """The slot rows of channels [c0, c1) with the geometry rows: float32
+    rows 0-5 and 6+c0..6+c1, or the packed payload's 3 geometry carriers and
+    the colour carriers of those channels (c0 is even, so a group falls on
+    whole carriers; an odd last channel's carrier holds a zero low half)."""
+    if packed:
+        return torch.cat([fields[:3], fields[3 + c0 // 2 : 3 + (c1 + 1) // 2]])
+    return torch.cat([fields[:6], fields[6 + c0 : 6 + c1]])
+
+
 def rasterize_fwd_plain(
     fields: torch.Tensor, bounds: torch.Tensor, n_images: int, tile: int,
     tiles_w: int, tiles_h: int, width: int, height: int, packed: bool = False,
@@ -229,9 +257,17 @@ def rasterize_fwd(
     `pair_counts` receives each tile's count of contributing (pixel, slot)
     pairs, which the backward's live pairs must equal.  With `packed` the
     fields are the packed payload [packed_rows(D), P] of D = n_channels.
+    More than MAX_CHANNELS channels composite in `channel_groups`, the
+    counts and T from the first.
     """
     D, n_tiles = _check_composite_args("rasterize_fwd", fields, bounds, n_images, tile,
                                        tiles_w, tiles_h, packed, n_channels)
+    if D > MAX_CHANNELS:
+        outs = [rasterize_fwd(_group_fields(fields, c0, c1, packed), bounds, n_images, tile,
+                              tiles_w, tiles_h, width, height,
+                              pair_counts if c0 == 0 else None, packed, c1 - c0)
+                for c0, c1 in channel_groups(D)]
+        return torch.cat([o[0] for o in outs], dim=-1), outs[0][1]
     if not check_kernel_device("rasterize_fwd", fields, bounds):
         if pair_counts is not None:
             raise ValueError("pair_counts is filled by the CUDA kernel only")
@@ -266,12 +302,21 @@ def _check_composite_args(name, fields, bounds, n_images, tile, tiles_w, tiles_h
     if fields.dim() != 2 or fields.dtype != torch.float32 or not fields.is_contiguous():
         raise ValueError("fields must be a contiguous float32 [6+D, P] tensor")
     D = _channel_count(name, fields, packed, n_channels)
-    if not 1 <= D <= MAX_CHANNELS:
-        raise ValueError(f"{name} takes 1 to {MAX_CHANNELS} channels, got D={D}")
+    if D < 1:
+        raise ValueError(f"{name} takes at least one channel, got D={D}")
     n_tiles = n_images * tiles_w * tiles_h
     if bounds.shape != (n_tiles + 1,) or bounds.dtype != torch.int32:
         raise ValueError(f"bounds must be int32 [{n_tiles + 1}], got {bounds.dtype} {tuple(bounds.shape)}")
     return D, n_tiles
+
+
+def _add_groups(parts: List[torch.Tensor], n_rows: int) -> torch.Tensor:
+    """The first `n_rows` rows of the channel groups' per-slot gradients
+    (the geometry rows), added in float32 in group order."""
+    total = parts[0][:n_rows].clone()
+    for p in parts[1:]:
+        total += p[:n_rows]
+    return total
 
 
 def _counts_ptr(counts: Optional[torch.Tensor], n_tiles: int, device) -> Optional[int]:
@@ -359,7 +404,11 @@ def rasterize_bwd(
     receives each tile's count of live (pixel, slot) pairs.  With `packed`
     the fields are the packed payload the packed forward read; with
     `pack_grads` the result is grad_pack_rows(D) bf16-pair carriers of the
-    6+D rows, zero bits outside every span."""
+    6+D rows, zero bits outside every span.  More than MAX_CHANNELS
+    channels run in `channel_groups` (v_t in the first only, `live_counts`
+    from the first), with float32 rows, the geometry rows added over the
+    groups in group order: the result is then the 6+D float32 rows even
+    with `pack_grads`."""
     D, n_tiles = _check_composite_args("rasterize_bwd", fields, bounds, n_images, tile,
                                        tiles_w, tiles_h, packed, n_channels)
     for name, t, shape in (("v_pix", v_pix, (n_images, height, width, D)),
@@ -369,6 +418,15 @@ def rasterize_bwd(
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 {shape} tensor, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if D > MAX_CHANNELS:
+        parts = []
+        for c0, c1 in channel_groups(D):
+            parts.append(rasterize_bwd(
+                _group_fields(fields, c0, c1, packed), bounds, n_images, tile, tiles_w, tiles_h,
+                width, height, v_pix[..., c0:c1].contiguous(),
+                v_t if c0 == 0 else torch.zeros_like(v_t), pix_out[..., c0:c1].contiguous(),
+                t_final, live_counts if c0 == 0 else None, packed, False, c1 - c0))
+        return torch.cat([_add_groups(parts, 6)] + [p[6:] for p in parts])
     if not check_kernel_device("rasterize_bwd", fields, bounds, v_pix, v_t, pix_out, t_final):
         if live_counts is not None:
             raise ValueError("live_counts is filled by the CUDA kernel only")

@@ -105,8 +105,8 @@ def _warn_parity_arguments(sparse_grad: bool, segmented: bool, channel_chunk: in
         )
     if channel_chunk != 32:
         warnings.warn(
-            "channel_chunk has no effect on this path: the kernels composite all D "
-            "channels in one pass (D <= 32)",
+            "channel_chunk has no effect on this path: any channel count composites in "
+            "groups of 32, the kernels' width",
             stacklevel=3,
         )
 
@@ -140,7 +140,7 @@ def rasterization(
     sparse_grad: bool = False,  # parity argument: warns, gradients are dense
     absgrad: bool = False,
     rasterize_mode: str = "classic",
-    channel_chunk: int = 32,  # parity argument: warns, every channel in one pass
+    channel_chunk: int = 32,  # parity argument: warns, channels go in groups of 32
     distributed: bool = False,  # parity argument: the single-process path
     camera_model: str = "pinhole",
     segmented: bool = False,  # parity argument: warns, one sort over (tile, depth)
@@ -200,7 +200,10 @@ def rasterization(
     sit where the JAX package's `rasterization` has them and behave as
     there: every call compacts by visibility (`packed`), one process renders
     (`distributed`), and `sparse_grad=True`, `segmented=True` and a
-    `channel_chunk` other than 32 warn that they change nothing.
+    `channel_chunk` other than 32 warn that they change nothing.  Any
+    channel count D renders: the composites take D > 32 in groups of 32
+    channels (upstream's `channel_chunk` at its default), each with the
+    geometry, forward and backward; `channel_chunk` does not set that size.
     """
     _warn_parity_arguments(sparse_grad, segmented, channel_chunk)
     if camera_model == "lidar":

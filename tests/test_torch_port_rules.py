@@ -874,3 +874,296 @@ def test_surfel_gate_boundary_on_the_card(case):
     assert (dead[t2.ROW_OP:] == 0).all()
     for row, row_p in zip(v_slot[:, finite], v_slot_p[:, finite]):
         assert (row - row_p).abs().max().item() <= 1e-4 * row_p.abs().max().item()
+
+
+def _k1_inputs(dev, g, D, ts, packed, N=3000, Wd=200, Hd=150, I=2, radius=12, op_scale=1.0,
+               conic=(0.5, 0.02), op_fill=None):
+    """Sorted slot rows (float32, or the packed payload) and spans of a
+    seeded 3DGS scene with D channels, as rasterize_to_pixels hands them to
+    K1 and K2."""
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+
+    m2 = torch.rand(I, N, 2, generator=g, device=dev) * torch.tensor([Wd, Hd], device=dev)
+    a = torch.rand(I, N, generator=g, device=dev) * conic[0] + conic[1]
+    c = torch.rand(I, N, generator=g, device=dev) * conic[0] + conic[1]
+    b = (torch.rand(I, N, generator=g, device=dev) - 0.5) * torch.sqrt(a * c)
+    cn = torch.stack([a, b, c], -1)
+    cl = torch.rand(I, N, D, generator=g, device=dev)
+    op = torch.rand(I, N, generator=g, device=dev) * op_scale
+    if op_fill is not None:
+        op = torch.full_like(op, op_fill)
+    dep = torch.rand(I, N, generator=g, device=dev) + 0.5
+    rad = torch.full((I, N, 2), radius, dtype=torch.int32, device=dev)
+    tw, th = -(-Wd // ts), -(-Hd // ts)
+    T = I * tw * th
+    comp = tr.compact_by_depth(m2, cn, cl, op, rad, dep)
+    plan = tr.make_tight_plan(comp.means2d, comp.radii, comp.conics, comp.opacities,
+                              comp.image_ids, comp.n_live, I, ts, tw, th, 1 << 19, 1 << 17)
+    assert not bool(plan.overflow)
+    table = tr.field_table(comp, plan.dummy)
+    keys, fields = tg.expand_emission(plan.rr, table, plan.n_slots, 1 << 19, tw, tw * th, T,
+                                      packed=packed, tile_size=ts)
+    fs, bounds, _ = tr.sort_slots(keys, fields, T)
+    return fs, bounds, (I, ts, tw, th, Wd, Hd)
+
+
+def _rows_within(got, want, tol):
+    for row, row_p in zip(got, want):
+        assert bool(torch.isfinite(row).all())
+        assert (row - row_p).abs().max().item() <= tol * max(row_p.abs().max().item(), 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["k1_k2", "k1_k2_packed", "k6", "k7"])
+def test_any_channel_count_matches_plain_versions_on_the_card(path):
+    """D = 64 through each composite's wrapper, which launches its kernel on
+    groups of at most 32 channels, against the plain version run on all 64
+    at once: the forward bit for bit (K1 float32: 1e-4, as above), T and the
+    contributing pairs of the first group equal to the backward's live
+    pairs; the backward, whose geometry rows add the groups' sums, within
+    the row tolerance of each kernel's own test above (K2 packed: 1e-5,
+    float32 rows whatever pack_grads asks, with more than one group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import rasterize_kernel as tk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    D = 64
+    if path.startswith("k1_k2"):
+        packed = path.endswith("packed")
+        fs, bounds, geo = _k1_inputs(dev, g, D, 16, packed)
+        T = bounds.shape[0] - 1
+        kept = torch.empty(T, dtype=torch.int32, device=dev)
+        modes = dict(packed=packed, n_channels=D)
+        launched = tk.rasterize_fwd.launches + tk.rasterize_fwd.launches_packed
+        col, t = tk.rasterize_fwd(fs, bounds, *geo, pair_counts=kept, **modes)
+        assert tk.rasterize_fwd.launches + tk.rasterize_fwd.launches_packed == launched + 2
+        col_p, t_p = tk.rasterize_fwd_plain(fs, bounds, *geo, **modes)
+        torch.cuda.synchronize()
+        if packed:
+            assert torch.equal(col, col_p) and torch.equal(t, t_p)
+        else:
+            assert (col - col_p).abs().max().item() <= 1e-4
+            assert (t - t_p).abs().max().item() <= 1e-4
+        v_pix = torch.randn(col.shape, generator=g, device=dev)
+        v_t = torch.randn(t.shape, generator=g, device=dev)
+        bargs = (fs, bounds, *geo, v_pix, v_t, col, t)
+        live = torch.empty(T, dtype=torch.int32, device=dev)
+        v_slot = tk.rasterize_bwd(*bargs, live_counts=live, pack_grads=packed, **modes)
+        v_slot_p, n_live_p = tk.rasterize_bwd_plain(*bargs, **modes)
+        torch.cuda.synchronize()
+        assert torch.equal(live, kept) and int(live.sum()) == n_live_p > 0
+        assert v_slot.shape == (6 + D, fs.shape[1])
+        assert torch.equal(v_slot, tk.rasterize_bwd(*bargs, pack_grads=packed, **modes))
+        _rows_within(v_slot, v_slot_p, 1e-5 if packed else 1e-4)
+    elif path == "k6":
+        from gsplat_tpu_torch.ops import rasterize2d_kernel as t2
+
+        N = 3000
+        means = torch.cat([(torch.rand(N, 2, generator=g, device=dev) - 0.5) * 3.0,
+                           3.0 + torch.rand(N, 1, generator=g, device=dev) * 4.0], 1)
+        quats = torch.randn(N, 4, generator=g, device=dev)
+        scales = torch.rand(N, 3, generator=g, device=dev) * 0.15 + 0.02
+        op = torch.rand(N, generator=g, device=dev)
+        fields, bounds, geo = _surfel_inputs(dev, means, quats, scales, op, D, 200, 150, g)
+        T = bounds.shape[0] - 1
+        kept = torch.empty(T, dtype=torch.int32, device=dev)
+        out, t_fin, med = t2.rasterize2d_fwd(fields, bounds, *geo, pair_counts=kept)
+        out_p, t_p, med_p = t2.rasterize2d_fwd_plain(fields, bounds, *geo)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_p) and torch.equal(t_fin, t_p) and torch.equal(med, med_p)
+        v_pix = torch.randn(out.shape, generator=g, device=dev)
+        v_t = torch.randn(t_fin.shape, generator=g, device=dev)
+        bargs = (fields, bounds, *geo, v_pix, v_t, out, t_fin, med)
+        live = torch.empty(T, dtype=torch.int32, device=dev)
+        v_slot = t2.rasterize2d_bwd(*bargs, live_counts=live)
+        v_slot_p, n_live_p = t2.rasterize2d_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        assert torch.equal(live, kept) and int(live.sum()) == n_live_p > 0
+        assert torch.equal(v_slot, t2.rasterize2d_bwd(*bargs))
+        _rows_within(v_slot, v_slot_p, 1e-4)
+    else:
+        from gsplat_tpu_torch.ops import rasterize_eval3d_kernel as t3
+
+        fields, bounds, rays, geo = _eval3d_inputs(dev, g, D, True, True)
+        T = bounds.shape[0] - 1
+        kept = torch.empty(T, dtype=torch.int32, device=dev)
+        out, t_fin = t3.rasterize_eval3d_fwd(fields, bounds, rays, *geo, pair_counts=kept)
+        out_p, t_p = t3.rasterize_eval3d_fwd_plain(fields, bounds, rays, *geo)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_p) and torch.equal(t_fin, t_p)
+        v_pix = torch.randn(out.shape, generator=g, device=dev)
+        v_t = torch.randn(t_fin.shape, generator=g, device=dev)
+        bargs = (fields, bounds, rays, *geo, v_pix, v_t, out, t_fin)
+        live = torch.empty(T, dtype=torch.int32, device=dev)
+        v_slot, v_rays = t3.rasterize_eval3d_bwd(*bargs, live_counts=live)
+        v_slot_p, v_rays_p, n_live_p = t3.rasterize_eval3d_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        assert torch.equal(live, kept) and int(live.sum()) == n_live_p > 0
+        again = t3.rasterize_eval3d_bwd(*bargs)
+        assert torch.equal(v_slot, again[0]) and torch.equal(v_rays, again[1])
+        assert bool((v_slot[16 + D - 1] == 0).all())  # the input hit channel's row
+        hit_row = 16 + D - 1
+        keep = [f for f in range(v_slot.shape[0]) if f != hit_row]
+        _rows_within(v_slot[keep], v_slot_p[keep], 1e-5)
+        _rows_within(v_rays.reshape(-1, 6).t(), v_rays_p.reshape(-1, 6).t(), 1e-5)
+
+
+def _eval3d_inputs(dev, g, D, hit, normals, N=3000, Wd=200, Hd=150, C=2, op_scale=1.0,
+                   scale_range=(0.02, 0.15), front=0):
+    """Sorted slot rows, spans and rays of a seeded eval3d scene on a
+    distorted pinhole, as rasterize_to_pixels_eval3d hands them to K7a and
+    K7b; `front` opaque gaussians near the camera stop most pixels early."""
+    from gsplat_tpu_torch.ops.projection_ut import fully_fused_projection_ut
+    from gsplat_tpu_torch.ops.rasterize_eval3d import iscl_rot_from_quat_scale
+    from gsplat_tpu_torch.sensors import generate_rays, make_camera
+
+    means = (torch.rand(N, 3, generator=g, device=dev) - 0.5) * torch.tensor([6.0, 4.5, 4.0], device=dev)
+    means[:, 2] += 6.0
+    quats = torch.randn(N, 4, generator=g, device=dev)
+    scales = torch.rand(N, 3, generator=g, device=dev) * (scale_range[1] - scale_range[0]) + scale_range[0]
+    op = torch.rand(N, generator=g, device=dev) * op_scale
+    if front:
+        means[:front, 2] = 2.0
+        scales[:front] = 0.6
+        op[:front] = 0.98
+    vm = torch.eye(4, device=dev).repeat(C, 1, 1)
+    vm[1:, :3, 3] = torch.tensor([0.2, -0.1, 0.3], device=dev)
+    K = torch.tensor([[150.0, 0, Wd / 2], [0, 150.0, Hd / 2], [0, 0, 1]], device=dev).repeat(C, 1, 1)
+    rad = torch.tensor([[0.05, -0.01]], device=dev).repeat(C, 1)
+    radii, m2, depths, _, _ = fully_fused_projection_ut(means, quats, scales, op, vm, K, Wd, Hd,
+                                                        radial_coeffs=rad)
+    cam = make_camera("pinhole", Wd, Hd, K[:, [0, 1], [0, 1]], K[:, :2, 2], radial_coeffs=rad)
+    rays = generate_rays(cam, Wd, Hd, vm).contiguous()
+    E = C * N
+    tw, th = -(-Wd // 16), -(-Hd // 16)
+    cap = 1 << 20
+    plan = tr.make_emission_plan(m2, radii, 16, tw, th, cap)
+    assert not bool(plan.overflow) and int(plan.n_isects) > 0
+    rows = [means.repeat(C, 1), iscl_rot_from_quat_scale(quats, scales).reshape(N, 9).repeat(C, 1),
+            op.repeat(C)[:, None]]
+    if hit:
+        rows.append(scales.repeat(C, 1))
+    rows.append(torch.rand(E, D, generator=g, device=dev))
+    if normals:
+        rows.append(torch.nn.functional.normalize(torch.randn(E, 3, generator=g, device=dev), dim=1))
+    table = torch.where((plan.cnt > 0)[:, None], torch.cat(rows, 1), 0.0)
+    fields, bounds, _, _ = tr.expand_sort_align(table, depths.reshape(E), plan, cap, tw, th, C)
+    return fields, bounds, rays, (C, tw, th, Wd, Hd, hit, normals)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["long_spans", "all_stop", "lead_and_tail"])
+@pytest.mark.parametrize("hit_normals", [False, True], ids=["plain_rows", "hit_normals"])
+@pytest.mark.parametrize("size", [(200, 150), (37, 21)], ids=["200x150", "37x21"])
+def test_k7b_stress_cases_on_the_card(case, hit_normals, size):
+    """K7b where its batches, early exit and zero writes are stressed: spans
+    of many 64-slot batches, pixels that all stop within the first batches
+    (the CTA leaves and zeroes the rest of its span), and slots outside every
+    span before the first tile's and after the last (each CTA zeroes its
+    share); at 200x150 and 37x21, whose edge tiles cut through the 8x4
+    blocks that share a thread (kPix's edges) and leave whole blocks outside
+    the image; with the hit channel and the normals off and on.  The outputs
+    are allocated uncleared over NaN-filled memory, so an element no CTA
+    writes shows.  Live pairs equal K7a's, two runs give the same bits, the
+    input hit channel's row is 0, the rows and the ray gradients are within
+    1e-5 of their largest entries of the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import rasterize_eval3d_kernel as t3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    D = 4 if hit_normals else 3
+    Wd, Hd = size
+    kw = dict(long_spans=dict(N=6000, op_scale=0.15, scale_range=(0.2, 0.5)),
+              all_stop=dict(N=3000, front=200), lead_and_tail=dict(N=2000))[case]
+    fields, bounds, rays, geo = _eval3d_inputs(dev, g, D, hit_normals, hit_normals, Wd=Wd, Hd=Hd,
+                                               C=1, **kw)
+    lead = 37 if case == "lead_and_tail" else 0
+    if lead:  # slots before the first span: junk rows that no tile reads
+        fields = torch.cat([torch.full((fields.shape[0], lead), float("nan"), device=dev), fields], 1)
+        bounds = bounds + lead
+    spans = bounds[1:] - bounds[:-1]
+    if case == "long_spans":
+        assert int(spans.max()) > 6 * 64
+    T = bounds.shape[0] - 1
+    kept = torch.empty(T, dtype=torch.int32, device=dev)
+    n_eval = torch.empty(T, dtype=torch.int32, device=dev)
+    out, t_fin = t3.rasterize_eval3d_fwd(fields, bounds, rays, *geo, pair_counts=kept,
+                                         eval_counts=n_eval)
+    v_pix = torch.randn(out.shape, generator=g, device=dev)
+    v_t = torch.randn(t_fin.shape, generator=g, device=dev)
+    bargs = (fields, bounds, rays, *geo, v_pix, v_t, out, t_fin)
+    live = torch.empty(T, dtype=torch.int32, device=dev)
+    torch.empty(1 << 28, device=dev).fill_(float("nan"))  # the allocator's next blocks
+    v_slot, v_rays = t3.rasterize_eval3d_bwd(*bargs, live_counts=live)
+    again = t3.rasterize_eval3d_bwd(*bargs)
+    v_slot_p, v_rays_p, n_live_p = t3.rasterize_eval3d_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(live, kept) and int(live.sum()) == n_live_p > 0
+    assert torch.equal(v_slot.view(torch.int32), again[0].view(torch.int32)), "two runs differ"
+    assert torch.equal(v_rays.view(torch.int32), again[1].view(torch.int32)), "two runs differ"
+    n_sorted = int(bounds[-1])
+    outside = torch.cat([v_slot[:, :lead], v_slot[:, n_sorted:]], 1)
+    assert (outside.view(torch.int32) == 0).all(), "a slot outside every span is not zero"
+    if case == "all_stop":
+        assert float(t_fin.max()) < 0.02  # every pixel stopped
+    keep = list(range(v_slot.shape[0]))
+    if hit_normals:
+        hit_row = 16 + D - 1
+        assert (v_slot[hit_row].view(torch.int32) == 0).all()  # the input hit channel's row
+        keep.remove(hit_row)
+    assert bool(torch.isfinite(v_rays).all())
+    _rows_within(v_slot[keep], v_slot_p[keep], 1e-5)
+    _rows_within(v_rays.reshape(-1, 6).t(), v_rays_p.reshape(-1, 6).t(), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["long_spans", "all_stop", "edge"])
+@pytest.mark.parametrize("packed", [False, True], ids=["float32", "packed"])
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_k1_stress_cases_on_the_card(case, packed, ts):
+    """K1 against its plain version where its batches, early exits and
+    coalesced stores are stressed: spans of many 64-slot batches, pixels
+    that all stop within the first batches, and a 37x21 image whose edge
+    tiles cut through the 8x4 blocks (whole blocks outside, rows of fewer
+    than 8 pixels).  The outputs are allocated over NaN-filled memory, so a
+    pixel no CTA writes shows.  Packed bit for bit, float32 within 1e-4 (as
+    above); the contributing pairs equal K2's live pairs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import rasterize_kernel as tk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    D = 3
+    kw = dict(long_spans=dict(N=6000, radius=40, op_scale=0.2, conic=(0.05, 0.005)),
+              all_stop=dict(N=3000, radius=40, conic=(0.05, 0.005), op_fill=0.98),
+              edge=dict(N=400, Wd=37, Hd=21, radius=8))[case]
+    fs, bounds, geo = _k1_inputs(dev, g, D, ts, packed, I=1, **kw)
+    spans = bounds[1:] - bounds[:-1]
+    if case == "long_spans":
+        assert int(spans.max()) > 4 * 64
+    T = bounds.shape[0] - 1
+    modes = dict(packed=packed, n_channels=D)
+    kept = torch.empty(T, dtype=torch.int32, device=dev)
+    torch.empty(1 << 28, device=dev).fill_(float("nan"))  # the allocator's next blocks
+    col, t = tk.rasterize_fwd(fs, bounds, *geo, pair_counts=kept, **modes)
+    col_p, t_p = tk.rasterize_fwd_plain(fs, bounds, *geo, **modes)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(col).all()) and bool(torch.isfinite(t).all())
+    if packed:
+        assert torch.equal(col, col_p) and torch.equal(t, t_p)
+    else:
+        assert (col - col_p).abs().max().item() <= 1e-4
+        assert (t - t_p).abs().max().item() <= 1e-4
+    v_pix = torch.randn(col.shape, generator=g, device=dev)
+    v_t = torch.randn(t.shape, generator=g, device=dev)
+    live = torch.empty(T, dtype=torch.int32, device=dev)
+    tk.rasterize_bwd(fs, bounds, *geo, v_pix, v_t, col, t, live_counts=live, **modes)
+    torch.cuda.synchronize()
+    assert torch.equal(live, kept) and int(kept.sum()) > 0
+    if case == "all_stop":
+        assert float(t.max()) < 0.02  # every pixel stopped
