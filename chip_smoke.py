@@ -115,7 +115,11 @@ Phases:
  13. eval3d kernels, on one more render's own inputs: K9 bit for bit and
      timed (K9's `3dgut_check`); K7a bit for bit on the
      tiles with the longest spans and a seeded sample of the others, its
-     contributing pairs equal to K7b's live pairs in every tile; K7b within
+     contributing pairs equal to K7b's live pairs in every tile, no pair
+     gated by its early reject (the block masks of csrc/ray3d.cuh) that the
+     exact path keeps (the counting build runs both on every rejected pair),
+     every tile on the hoisted route of one origin, and the pairs evaluated,
+     through the exact path and contributing printed; K7b within
      1e-5 of each row's largest entry on the same tiles (the per-pixel ray
      gradients too), and bit for bit from run to run.  Both timed;
  14. AV training: av_trainer.AVRunner trains 9 steps of a street scene (the
@@ -129,7 +133,8 @@ Phases:
      loss must fall.  Then 3 more steps are timed whole and traced;
  15. lidar kernels, on one more AV step's lidar render (the hit channel
      without normals, D = 2, lidar rays): the checks of phase 13 on every
-     tile of the range image (K9's `av_check`); K1 (float32) on the same
+     tile of the range image (K9's `av_check`; K7a's tiles of one origin
+     counted, not required); K1 (float32) on the same
      step's 3 camera renders against its plain version on every tile
      (within 1e-4), timed (K1's `av_check`, its path's, beside the 4k
      exact request's record); and K2 (float32) on those renders, against
@@ -140,7 +145,9 @@ Phases:
      larger error of the two checks, and the lidar's under `av_check`.
 It prints one `kernels` JSON line (14 kernels, each with its launches on
 every path and `launches` on its own: MAIN_PATH; K1's records also carry
-`exp_bound_ms`, one exp per evaluated pair on the special-function units)
+`exp_bound_ms`, one exp per evaluated pair on the special-function units;
+K6a's, K6b's and K7a's bounds count the work given their early rejects, with
+the whole response on every evaluated pair under `every_pair_bound_ms`)
 and, last, the `ok` JSON line; any failure exits non-zero without it.  The script never falls back
 to the CPU.
 """
@@ -303,13 +310,42 @@ MAIN_PATH = {**{k: "serving" for k in SERVING_KERNELS},
              "rasterize_bwd": "av",
              **{k: "2dgs" for k in SURFEL_KERNELS if k != "segment_rowsum"},
              "rasterize_eval3d_fwd": "3dgut", "rasterize_eval3d_bwd": "3dgut"}
-K7A_FLOP_PER_PAIR = 68  # the ray response per evaluated (pixel, slot), csrc/ray3d.cuh
+# csrc/ray3d.cuh's exact path per (pixel, slot) with g = M o - M x hoisted
+# (one origin): u = M d (15), |u|^2 (5), its square root and reciprocal (2),
+# u^ (3), c (9), gray (5), hit_t (6), the exp and its argument (2), alpha (1)
+K7A_FLOP_PER_PAIR = 48
+K7A_FLOP_PER_PAIR_ORIGIN = 18  # with origins that differ: the pair's M o and g
+# the whole response, g included, on every evaluated pair: K7b's replay, and
+# K7a's bound before the hoisting and the early reject (`every_pair_bound_ms`)
+K7A_FLOP_EVERY_PAIR = 68
+# csrc/ray3d.cuh's hoisting and early reject per slot a tile reaches: M x
+# (15), the gate term (16 with its finiteness tests), the Gershgorin bound
+# (63), |x| (6), and per 8x4 block ray_block_gated (176: M times the
+# bundle's three vectors, three cross products, the componentwise lower
+# bound, the norms, the envelope, u . g and its bound, the two tests); and
+# g (K7A_FLOP_PER_PAIR_ORIGIN) once with one origin, else once per block
+K7A_FLOP_PER_SLOT_MASK = 15 + 16 + 63 + 6 + 8 * 176
 
 
 def k7a_flop_per_live_pair(D: int, hit: bool, normals: bool) -> int:
     """A live pair's weight and D colour sums; the hit distance (|s u^|, its
     square root, hd, its sum) and the flipped normal (n . d, sign, 3 sums)."""
     return 1 + 2 * (D - hit) + 12 * hit + 12 * normals
+
+
+def k7a_gate_flops(exact_counts: torch.Tensor, eval_counts: torch.Tensor,
+                   one_origin: torch.Tensor) -> int:
+    """The operations K7a's function needs to decide its pairs, given the
+    hoisting and the early reject: the exact path on each pair the block
+    masks do not gate (with the pair's own g where the tile's rays have more
+    than one origin), and the per-slot terms and block masks once per slot
+    that a tile reaches (at least ceil(evaluated / 256), the count taken, as
+    in k6_gate_flops; g once a slot with one origin, else once a block)."""
+    several = 1 - one_origin.long()
+    per_pair = K7A_FLOP_PER_PAIR + K7A_FLOP_PER_PAIR_ORIGIN * several
+    per_slot = K7A_FLOP_PER_SLOT_MASK + K7A_FLOP_PER_PAIR_ORIGIN * (1 + 7 * several)
+    reached = (eval_counts.long() + 255) // 256
+    return int((exact_counts.long() * per_pair + reached * per_slot).sum())
 
 
 def k7b_flop_per_live_pair(D: int, F: int) -> int:
@@ -1808,7 +1844,8 @@ def gut_phases(dev, raw, viewmats, K, wh, timer, log):
     if on_card:
         torch.cuda.empty_cache()
     log_memory(dev, "before the eval3d kernel checks", log)
-    return launches, check_eval3d_kernels(dev, args, launches, timer, log, "3DGUT render"), rec9
+    return launches, check_eval3d_kernels(dev, args, launches, timer, log, "3DGUT render",
+                                          one_origin=True), rec9
 
 
 def sync(dev):
@@ -1836,11 +1873,14 @@ def sampled_tiles(counts, n_images, tiles_w, tiles_h, W, H, dev):
 
 
 @torch.no_grad()
-def check_eval3d_kernels(dev, args, launches, timer, log, what: str, every_tile: bool = False):
+def check_eval3d_kernels(dev, args, launches, timer, log, what: str, every_tile: bool = False,
+                         one_origin: bool = False):
     """K7a bit for bit and K7b within 1e-5 of each row's largest entry (the
     ray gradients too) against their plain versions on the sampled tiles,
-    or on every tile, the live pairs equal in every tile; each kernel timed.
-    Large outputs are released as the checks go."""
+    or on every tile, the live pairs equal in every tile; no pair gated by
+    K7a's early reject that the exact path keeps; with `one_origin`, every
+    tile on K7a's hoisted route (a global shutter's rays share one origin);
+    each kernel timed.  Large outputs are released as the checks go."""
     on_card = dev.type == "cuda"
     k7a, k7b = args["rasterize_eval3d_fwd"], args["rasterize_eval3d_bwd"]
     fields, bounds, rays = k7a[0], k7a[1], k7a[2]
@@ -1850,12 +1890,22 @@ def check_eval3d_kernels(dev, args, launches, timer, log, what: str, every_tile:
     D = F - 13 - 3 * hit - 3 * normals
     D_out = D + 3 * normals
     n_sorted = int(bounds[-1])
-    kept = torch.zeros(T, dtype=torch.int32, device=dev)
-    n_eval = torch.zeros(T, dtype=torch.int32, device=dev)
-    counted = dict(pair_counts=kept, eval_counts=n_eval) if on_card else {}
+    # the per-tile counts come from the kernel (a CPU rehearsal has none):
+    # contributing, evaluated, taken by the exact path, rejected pairs that
+    # the exact path (run on them too) would not have gated, one origin
+    kept, n_eval, n_exact, unsound, one = (torch.zeros(T, dtype=torch.int32, device=dev)
+                                           for _ in range(5))
+    counted = dict(pair_counts=kept, eval_counts=n_eval, exact_counts=n_exact,
+                   unsound_counts=unsound, one_origin=one) if on_card else {}
     out, t_fin = r3k.rasterize_eval3d_fwd(*k7a, **counted)
     require(torch.equal(out, k7b[12]) and torch.equal(t_fin, k7b[13]),
             "rasterize_eval3d_fwd: a rerun differs from the render's")
+    require(int(unsound.sum()) == 0,
+            f"rasterize_eval3d_fwd ({what}): the early reject gated {int(unsound.sum())} pairs "
+            f"that the exact path keeps, in {int((unsound > 0).sum())} tiles")
+    n_one = int(one.sum())
+    require(not (on_card and one_origin) or n_one == T,
+            f"rasterize_eval3d_fwd ({what}): {T - n_one} of {T} tiles found more than one origin")
     counts = (bounds[1:] - bounds[:-1]).long()
     if every_tile:
         tiles = torch.argsort(counts)  # batches of like spans
@@ -1868,18 +1918,29 @@ def check_eval3d_kernels(dev, args, launches, timer, log, what: str, every_tile:
     require(torch.equal(out[on_tiles], out_p[on_tiles]) and torch.equal(t_fin[on_tiles], t_p[on_tiles]),
             f"rasterize_eval3d_fwd != plain ({what})")
     del out_p, t_p, out, t_fin
-    n_pairs, n_live = int(n_eval.sum()), int(kept.sum())
+    n_pairs, n_live, n_exact_pairs = int(n_eval.sum()), int(kept.sum()), int(n_exact.sum())
     log(f"rasterize_eval3d_fwd, {what}, at {W}x{H} (hit {hit}, normals {normals}, D {D}): "
         f"equal to its plain version bit for bit on "
         f"{tiles.numel()} tiles ({int(counts[tiles].sum())} of {n_sorted} slots, the longest "
-        f"span {int(counts.max())}); {n_pairs} pairs evaluated, {n_live} contributing")
+        f"span {int(counts.max())}); {n_pairs} pairs evaluated, {n_exact_pairs} "
+        f"({n_exact_pairs / max(n_pairs, 1):.4f}) through the exact path, {n_live} "
+        f"contributing, 0 rejected that the exact path keeps; {n_one} of {T} tiles with one "
+        f"origin (the hoisted route)")
     pix = n_images * H * W
+    # the bound counts the work the function needs given the hoisting and the
+    # early reject; `every_pair_bound_ms` is the earlier yardstick, the whole
+    # response on every evaluated pair
+    fwd_bytes = 4 * (F * n_sorted + T + 1 + pix * (6 + D_out + 1))
+    live_flops = k7a_flop_per_live_pair(D, hit, normals) * n_live
     records = [kernel_record(
         "rasterize_eval3d_fwd", launches["rasterize_eval3d_fwd"], 0.0,
-        timer(lambda: r3k.rasterize_eval3d_fwd(*k7a), 10), plain_fwd_ms,
-        4 * (F * n_sorted + T + 1 + pix * (6 + D_out + 1)),
-        K7A_FLOP_PER_PAIR * n_pairs + k7a_flop_per_live_pair(D, hit, normals) * n_live)]
+        timer(lambda: r3k.rasterize_eval3d_fwd(*k7a), 10), plain_fwd_ms, fwd_bytes,
+        k7a_gate_flops(n_exact, n_eval, one) + live_flops)]
     records[-1]["plain_on"] = f"{tiles.numel()} of {T} tiles"
+    records[-1]["pairs"] = {"evaluated": n_pairs, "exact": n_exact_pairs, "contributing": n_live,
+                            "unsound": int(unsound.sum()), "one_origin_tiles": n_one}
+    records[-1]["every_pair_bound_ms"] = bound_ms(fwd_bytes,
+                                                  K7A_FLOP_EVERY_PAIR * n_pairs + live_flops)
 
     live = torch.zeros(T, dtype=torch.int32, device=dev)
     got, got_rays = r3k.rasterize_eval3d_bwd(*k7b, **(dict(live_counts=live) if on_card else {}))
@@ -1930,7 +1991,7 @@ def check_eval3d_kernels(dev, args, launches, timer, log, what: str, every_tile:
         "rasterize_eval3d_bwd", launches["rasterize_eval3d_bwd"], max(err7b, err_r),
         timer(lambda: r3k.rasterize_eval3d_bwd(*k7b), 5), plain_bwd_ms,
         4 * (2 * F * n_sorted + T + 1 + pix * (6 + 2 * (D_out + 1) + 6)),
-        K7A_FLOP_PER_PAIR * n_pairs + k7b_flop_per_live_pair(D, F) * n_live))
+        K7A_FLOP_EVERY_PAIR * n_pairs + k7b_flop_per_live_pair(D, F) * n_live))
     records[-1]["plain_on"] = f"{tiles.numel()} of {T} tiles"
     return records
 
@@ -2386,7 +2447,8 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     for rec, av_rec in zip(gut_records, av_records):
         rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
         rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "plain_on")}
+                                                   "bound_by", "plain_on", "pairs",
+                                                   "every_pair_bound_ms") if k in av_rec}
     # K9's record is the 2DGS step's; K2's (float32) the AV cameras', its
     # path, with the 4k exact training step's numbers beside it
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -150,7 +150,7 @@ _SIGNATURES = {
     "expand": {
         "gs_expand_rows": [_VOID, _VOID, _LL, _VOID, _LL, _FLOAT, _INT, _VOID, _VOID],
         "gs_expand_emission": [_VOID, _LL, _VOID, _LL, _INT, _VOID, _LL, _INT,
-                               _INT, _INT, _INT, _INT, _VOID, _VOID, _VOID],
+                               _INT, _INT, _INT, _INT, _VOID, _LL, _VOID, _VOID, _VOID],
         "gs_expand_aabb": [_VOID, _VOID, _LL, _VOID, _VOID, _INT, _VOID, _LL, _INT, _INT,
                            _INT, _VOID, _LL, _VOID, _VOID, _VOID, _VOID, _VOID],
     },
@@ -180,7 +180,8 @@ _SIGNATURES = {
     },
     "rasterize_eval3d_fwd": {
         "gs_rasterize_eval3d_fwd": [_VOID, _LL, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
-                                    _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID, _VOID],
+                                    _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID, _VOID,
+                                    _VOID, _VOID, _VOID],
     },
     "rasterize_eval3d_bwd": {
         "gs_rasterize_eval3d_bwd": [_VOID, _LL, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,

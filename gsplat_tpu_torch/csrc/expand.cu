@@ -9,9 +9,13 @@
 //
 // K4 `expand_emission` replaces gather_pallas.py:_expand2_kernel (:584,
 // wrapper expand_emission2 :721), in both its layouts.  One thread per
-// emission slot s: it finds its row record by binary search in rr_cum_in,
-// computes the tile key (:652-665) and copies gaussian gid's 6+D render
-// fields.  Dummy records and slots past n_slots carry the sentinel key and
+// emission slot s: it finds its row record in rr_cum_in, computes the tile
+// key (:652-665) and copies gaussian gid's 6+D render fields.  The search
+// takes K8's prologue (search_brackets_kernel): one search of all R records
+// per 256-slot CTA, all at once; the CTA then stages its records (at most
+// 256: each covers a slot or more) in shared memory with coalesced loads, and
+// each thread searches them there (where ~22 levels of R in device memory
+// took the slot's thread before).  Dummy records and slots past n_slots carry the sentinel key and
 // zeros.  The packed layout (PACKED, :691-716) writes ceil((6+D)/2) bf16-pair
 // carriers instead (csrc/bf16pair.cuh): the mean made tile-local first,
 // x - tx*tile and y - ty*tile in float32, then the rows paired in order, so
@@ -60,6 +64,8 @@
 #include "bf16pair.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;  // a CTA's threads, one slot or row each
 
 // Column order of K3's float table gg_f [10, E].
 enum { GF_MX, GF_MY, GF_A, GF_B, GF_C, GF_SIG, GF_YEXT, GF_XEXT, GF_DET, GF_AABB };
@@ -155,21 +161,42 @@ __global__ void expand_emission_kernel(const int* __restrict__ rr, long long R,
                                        const float* __restrict__ table_g, long long E,
                                        int F, const int* __restrict__ n_slots_p,
                                        long long cap, int tile_w, int tiles_per_im,
-                                       int sentinel, int tile, int* __restrict__ keys,
-                                       float* __restrict__ fields) {
+                                       int sentinel, int tile, const long long* __restrict__ br,
+                                       int* __restrict__ keys, float* __restrict__ fields) {
+  // The CTA's records [lo, lo + count): cum_in, cum_ex, x0, ty, im, gid.
+  // Every live record covers a slot or more (K3's width is at least 1), so
+  // the CTA's i-th slot lies in one of records lo to lo + i: its slots need
+  // no more than kThreads records from lo.
+  __shared__ int rec[6][kThreads];
   const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n_slots = *n_slots_p;
+  const long long lo = br[blockIdx.x];
+  const long long last = min(min(br[blockIdx.x + 1], R - 1), lo + kThreads - 1);
+  const int count = lo < R ? (int)(last - lo + 1) : 0;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    rec[0][i] = rr[RR_IN * R + lo + i];
+    rec[1][i] = rr[RR_EX * R + lo + i];
+    rec[2][i] = rr[RR_X0 * R + lo + i];
+    rec[3][i] = rr[RR_TY * R + lo + i];
+    rec[4][i] = rr[RR_IM * R + lo + i];
+    rec[5][i] = rr[RR_GID * R + lo + i];
+  }
+  __syncthreads();
   if (s >= cap) return;
   int key = sentinel;
   long long gid = -1;
   int tx = 0, ty = 0;
-  if (s < (long long)*n_slots_p) {
-    const long long r = upper_bound(rr + RR_IN * R, R, s);
-    if (r < R) {
-      tx = rr[RR_X0 * R + r] + (int)(s - rr[RR_EX * R + r]);
-      ty = rr[RR_TY * R + r];
-      const int k = rr[RR_IM * R + r] * tiles_per_im + ty * tile_w + tx;
-      key = min(k, sentinel);
-      gid = rr[RR_GID * R + r];
+  if (s < n_slots) {
+    int a = 0, b = count;  // the first staged record with cum_in > s
+    while (a < b) {
+      const int mid = (a + b) >> 1;
+      if ((long long)rec[0][mid] > s) b = mid; else a = mid + 1;
+    }
+    if (a < count) {  // else no record holds the slot (past the last one)
+      tx = rec[2][a] + (int)(s - rec[1][a]);
+      ty = rec[3][a];
+      key = min(rec[4][a] * tiles_per_im + ty * tile_w + tx, sentinel);
+      gid = rec[5][a];
     }
   }
   keys[s] = key;
@@ -177,13 +204,13 @@ __global__ void expand_emission_kernel(const int* __restrict__ rr, long long R,
     for (int c = 0; 2 * c < F; ++c) {
       float carrier = 0.0f;  // zero bits
       if (gid >= 0) {
-        float hi = table_g[(2 * c) * E + gid];
-        float lo = 2 * c + 1 < F ? table_g[(2 * c + 1) * E + gid] : 0.0f;
+        float hi_f = table_g[(2 * c) * E + gid];
+        float lo_f = 2 * c + 1 < F ? table_g[(2 * c + 1) * E + gid] : 0.0f;
         if (c == 0) {  // the mean in tile-local pixels
-          hi = __fsub_rn(hi, (float)(tx * tile));
-          lo = __fsub_rn(lo, (float)(ty * tile));
+          hi_f = __fsub_rn(hi_f, (float)(tx * tile));
+          lo_f = __fsub_rn(lo_f, (float)(ty * tile));
         }
-        carrier = gs::pack_bf16_pair(hi, lo);
+        carrier = gs::pack_bf16_pair(hi_f, lo_f);
       }
       fields[c * cap + s] = carrier;
     }
@@ -193,14 +220,14 @@ __global__ void expand_emission_kernel(const int* __restrict__ rr, long long R,
   }
 }
 
-// K8's prologue: the gaussian of each CTA's first slot, br[b] =
-// upper_bound(cum_in, E, b * per_cta) where that slot lies below
-// min(cap, n_slots), else E.  Slot s of CTA b then has its gaussian in
-// [br[b], br[b + 1]]: one thread per CTA searches all E rows here, all
-// CTAs at once, and the main kernel searches only between the two.
-__global__ void aabb_brackets_kernel(const int* __restrict__ cum_in, long long E,
-                                     const int* __restrict__ n_slots_p, long long cap,
-                                     int per_cta, long long n_br, long long* __restrict__ br) {
+// The search's prologue of K4 and K8: the record (K4) or gaussian (K8) of
+// each CTA's first slot, br[b] = upper_bound(cum_in, E, b * per_cta) where
+// that slot lies below min(cap, n_slots), else E.  Slot s of CTA b then has
+// its own in [br[b], br[b + 1]]: one thread per CTA searches all E rows
+// here, all CTAs at once, and the main kernel searches only between the two.
+__global__ void search_brackets_kernel(const int* __restrict__ cum_in, long long E,
+                                       const int* __restrict__ n_slots_p, long long cap,
+                                       int per_cta, long long n_br, long long* __restrict__ br) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= n_br) return;
   const long long s0 = b * per_cta;
@@ -239,8 +266,6 @@ __global__ void expand_aabb_kernel(const int* __restrict__ cum_in,
   for (int f = 0; f < R; ++f) fields[f * cap + s] = live ? table[f * E + g] : 0.0f;
 }
 
-constexpr int kThreads = 256;
-
 unsigned int blocks_for(long long n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
 }
@@ -265,21 +290,27 @@ int gs_expand_rows(const float* gg_f, const int* gg_i, long long E,
 }
 
 // rr [6, R] i32 (cum_ex, cum_in, x0, ty, im, gid), table_g [F, E] f32,
-// n_slots [1] i32 (device) -> keys [cap] i32 and fields [F, cap] f32, or
-// with `packed` the bf16-pair carriers [ceil(F/2), cap] with tile-local means
-// (tile: the tile size in pixels).
+// n_slots [1] i32 (device), scratch br [n_br] i64 with n_br >= ceil(cap /
+// 256) + 1 -> keys [cap] i32 and fields [F, cap] f32, or with `packed` the
+// bf16-pair carriers [ceil(F/2), cap] with tile-local means (tile: the tile
+// size in pixels).
 int gs_expand_emission(const int* rr, long long R, const float* table_g,
                        long long E, int F, const int* n_slots, long long cap,
                        int tile_w, int tiles_per_im, int sentinel, int packed, int tile,
-                       int* keys, float* fields, cudaStream_t stream) {
+                       long long* br, long long n_br, int* keys, float* fields,
+                       cudaStream_t stream) {
   if (cap > 0) {
+    const long long blocks = blocks_for(cap);
+    if (n_br < blocks + 1) return (int)cudaErrorInvalidValue;
+    search_brackets_kernel<<<blocks_for(blocks + 1), kThreads, 0, stream>>>(
+        rr + RR_IN * R, R, n_slots, cap, kThreads, blocks + 1, br);
     if (packed)
-      expand_emission_kernel<true><<<blocks_for(cap), kThreads, 0, stream>>>(
-          rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel, tile,
+      expand_emission_kernel<true><<<(unsigned int)blocks, kThreads, 0, stream>>>(
+          rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel, tile, br,
           keys, fields);
     else
-      expand_emission_kernel<false><<<blocks_for(cap), kThreads, 0, stream>>>(
-          rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel, tile,
+      expand_emission_kernel<false><<<(unsigned int)blocks, kThreads, 0, stream>>>(
+          rr, R, table_g, E, F, n_slots, cap, tile_w, tiles_per_im, sentinel, tile, br,
           keys, fields);
   }
   return (int)cudaGetLastError();
@@ -298,7 +329,7 @@ int gs_expand_aabb(const int* cum_in, const int* rect, long long E,
   if (cap > 0) {
     const long long blocks = blocks_for(cap);
     if (n_br < blocks + 1) return (int)cudaErrorInvalidValue;
-    aabb_brackets_kernel<<<blocks_for(blocks + 1), kThreads, 0, stream>>>(
+    search_brackets_kernel<<<blocks_for(blocks + 1), kThreads, 0, stream>>>(
         cum_in, E, n_slots, cap, kThreads, blocks + 1, br);
     expand_aabb_kernel<<<(unsigned int)blocks, kThreads, 0, stream>>>(
         cum_in, rect, E, depth, table, R, n_slots, cap, tile_w, tiles_per_im, sentinel, br,

@@ -222,10 +222,12 @@ def expand_emission(
     keys = torch.empty((cap,), dtype=torch.int32, device=rr.device)
     rows = -(-F // 2) if packed else F
     fields = torch.empty((rows, cap), dtype=torch.float32, device=rr.device)
+    # the record of each 256-slot CTA's first slot, the search's brackets
+    br = torch.empty((-(-cap // 256) + 1,), dtype=torch.int64, device=rr.device)
     code = lib.gs_expand_emission(
         rr.data_ptr(), rr.shape[1], table_g.data_ptr(), table_g.shape[1], F,
         n_slots.data_ptr(), cap, tile_w, tiles_per_im, sentinel, int(packed), tile_size,
-        keys.data_ptr(), fields.data_ptr(), _build.stream_of(keys),
+        br.data_ptr(), br.shape[0], keys.data_ptr(), fields.data_ptr(), _build.stream_of(keys),
     )
     _build.check(lib, code, "expand_emission")
     if packed:

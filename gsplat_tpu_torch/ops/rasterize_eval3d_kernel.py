@@ -168,6 +168,166 @@ def _normal_sign(rb: _RayBatch, normal0: int) -> torch.Tensor:
     return torch.where(_dot3(n, rb.d) > 0.0, -1.0, 1.0)
 
 
+# csrc/ray3d.cuh's early reject, in float32: what K7a gates before the exact
+# path.  No plain version uses it (they take the exact path for every pair,
+# which decides the same); the tests hold it to `_ray_batch`.
+GATE_MARGIN = 2.0 ** -6  # delta
+GATE_SLACK = 1.0 + 2.0 ** -10  # 1 + s
+OP_DEAD = float(torch.tensor(ALPHA_THRESHOLD, dtype=torch.float32) * (1.0 - 2.0 ** -16))
+UN_MIN = 2.0 ** -16  # the least |M d| the mask reads
+ENVELOPE = 2.0 ** -16
+ENVELOPE_FLOOR = 2.0 ** -100
+NORM_SLACK = 1.0 + 2.0 ** -16  # a computed norm's inflation
+FIT_FLOOR = 2.0 ** -20  # the affine model's own roundings, of max |d|
+SIGMA_SLACK = 1.0 + 2.0 ** -19  # the Gershgorin bound's roundings
+N_BLOCKS = 8  # the 8x4 pixel blocks of a tile: two across, four down
+
+
+def ray_gate_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Each slot's gate term g (csrc/ray3d.cuh:ray_gate) from its first 13
+    rows [13+, *S] (x, M, opacity): +inf if one is not finite, -inf if the
+    opacity is below OP_DEAD, else 2 (ln(255 op) + delta)(1 + s)."""
+    rows = rows[: ROW_OP + 1]
+    op = rows[ROW_OP]
+    g = (2.0 * (torch.log(op * 255.0) + GATE_MARGIN)) * GATE_SLACK
+    g = torch.where(op < OP_DEAD, -torch.inf, g)
+    return torch.where(torch.isfinite(rows).all(0), g, torch.inf)
+
+
+def _norm3(a):
+    return torch.sqrt(_dot3(a, a))
+
+
+def ray_sigma_max_plain(rows: torch.Tensor) -> torch.Tensor:
+    """An upper bound on the largest singular value of each slot's M (rows
+    [13+, *S]): Gershgorin on M M^T, inflated for its roundings."""
+    m = [rows[ROW_M + 3 * k : ROW_M + 3 * k + 3] for k in range(3)]
+    gram = [[_dot3(m[j], m[k]) for k in range(3)] for j in range(3)]
+    lam = [gram[k][k] + gram[k][(k + 1) % 3].abs() + gram[k][(k + 2) % 3].abs()
+           for k in range(3)]
+    return torch.sqrt(torch.maximum(torch.maximum(lam[0], lam[1]), lam[2])) * SIGMA_SLACK
+
+
+class RayBundles(NamedTuple):
+    """Each 8x4 block's bundle of rays (csrc/ray3d.cuh:ray_block_bundle), for
+    blocks [nt, 8]: every active ray i of the block, at lane offset (ox_i,
+    oy_i) from the centroid of the block's active lanes (|ox_i| <= ext_x,
+    |oy_i| <= ext_y), has |d_i - (dc + ox_i ax + oy_i ay)| <= fit and
+    |o_i - oc| <= ro."""
+
+    dc: torch.Tensor  # [nt, 8, 3] the affine model of the directions
+    ax: torch.Tensor  # [nt, 8, 3]
+    ay: torch.Tensor  # [nt, 8, 3]
+    ext_x: torch.Tensor  # [nt, 8]
+    ext_y: torch.Tensor  # [nt, 8]
+    fit: torch.Tensor  # [nt, 8]
+    oc: torch.Tensor  # [nt, 8, 3] the first active ray's origin
+    ro: torch.Tensor  # [nt, 8], 0 where every origin equals oc bit for bit
+    on: torch.Tensor  # [nt, 8] |oc|
+    usable: torch.Tensor  # [nt, 8] an active ray, all finite, the bounds finite
+
+
+def _blocks_of(x: torch.Tensor) -> torch.Tensor:
+    """[nt, 256, ...] in a tile's row-major pixel order -> [nt, 8, 32, ...]:
+    block b (pixels x in [8 (b & 1), +8), y in [4 (b >> 1), +4)), then the
+    block's pixels row-major (lane l: (l % 8, l / 8))."""
+    nt, rest = x.shape[0], x.shape[2:]
+    x = x.reshape((nt, 4, 4, 2, 8) + rest).movedim(3, 2)
+    return x.reshape((nt, N_BLOCKS, 32) + rest)
+
+
+def ray_block_bundles_plain(rays: torch.Tensor, tiles: torch.Tensor, tiles_w: int,
+                            tiles_per_image: int, width: int, height: int) -> RayBundles:
+    """The bundles of the 8 blocks of each tile in `tiles` over its active
+    rays (inside the image, |d|^2 > 1e-12): the directions' least-squares
+    affine model in the lane offsets, per axis, and its largest residual."""
+    dev = rays.device
+    p = torch.arange(TILE_3D * TILE_3D, device=dev)
+    tl = tiles % tiles_per_image
+    x = (tl % tiles_w)[:, None] * TILE_3D + (p % TILE_3D)[None]
+    y = (tl // tiles_w)[:, None] * TILE_3D + (p // TILE_3D)[None]
+    inside = (x < width) & (y < height)
+    at = ((tiles // tiles_per_image)[:, None].expand_as(x), y.clamp(max=height - 1),
+          x.clamp(max=width - 1))
+    ray = _blocks_of(torch.where(inside[..., None], rays[at], 0.0))  # [nt, 8, 32, 6]
+    o, d = ray[..., :3], ray[..., 3:]
+    dn2 = _dot3(d.unbind(-1), d.unbind(-1))
+    active = _blocks_of(inside) & (dn2 > 1e-12)
+    finite = torch.isfinite(ray).all(-1) | ~active
+    lane = torch.arange(32, device=dev)
+    lx, ly = (lane % 8).to(torch.float32), (lane // 8).to(torch.float32)
+    w = active.to(torch.float32)
+    da = torch.where(active[..., None], d, 0.0)
+    n = w.sum(2).clamp(min=1.0)
+    mx, my = (w * lx).sum(2) / n, (w * ly).sum(2) / n  # [nt, 8]
+    ox, oy = (lx - mx[..., None]) * w, (ly - my[..., None]) * w  # [nt, 8, 32]
+    dc = da.sum(2) / n[..., None]
+    ax = (ox[..., None] * da).sum(2) / (ox * ox).sum(2).clamp(min=1.0)[..., None]
+    ay = (oy[..., None] * da).sum(2) / (oy * oy).sum(2).clamp(min=1.0)[..., None]
+    model = dc[:, :, None] + ox[..., None] * ax[:, :, None] + oy[..., None] * ay[:, :, None]
+    res = torch.where(active, _norm3((d - model).unbind(-1)), 0.0)
+    dmax = torch.where(active, torch.sqrt(dn2), 0.0).amax(2)
+    fit = res.amax(2) * NORM_SLACK + FIT_FLOOR * dmax
+    first = torch.argmax(active.to(torch.int32), dim=2)  # the first active lane
+    oc = torch.gather(o, 2, first[:, :, None, None].expand(-1, -1, 1, 3))[:, :, 0]
+    dev_o = torch.where(active, _norm3((o - oc[:, :, None]).unbind(-1)), 0.0)
+    ro = dev_o.amax(2) * NORM_SLACK
+    usable = active.any(2) & finite.all(2) & torch.isfinite(fit) & torch.isfinite(ro)
+    return RayBundles(dc=dc, ax=ax, ay=ay, ext_x=ox.abs().amax(2), ext_y=oy.abs().amax(2),
+                      fit=fit, oc=oc, ro=ro, on=_norm3(oc.unbind(-1)), usable=usable)
+
+
+def ray_block_masks_plain(rows: torch.Tensor, bundles: RayBundles,
+                          gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """csrc/ray3d.cuh's early reject: [nt, 8, L], True where the slot (rows
+    [13+, nt, L], one span of slots per tile) is certainly gated at every
+    active pixel of the tile's block: hit_t < 0 at each, or the exact path's
+    gray above the gate term.  `gate` is ray_gate_plain(rows) if not given."""
+    g = (ray_gate_plain(rows) if gate is None else gate)[:, None]  # [nt, 1, L]
+    r = rows[:, :, None, :]  # [13+, nt, 1, L]
+    m = [tuple(r[ROW_M + 3 * k + i] for i in range(3)) for k in range(3)]
+    X = tuple(r[ROW_X + i] for i in range(3))
+    smax = ray_sigma_max_plain(rows)[:, None]
+    b3 = lambda t: tuple(t[..., i, None] for i in range(3))  # noqa: E731  [nt, 8, 1]
+    dc, ax, ay, oc = b3(bundles.dc), b3(bundles.ax), b3(bundles.ay), b3(bundles.oc)
+    ex, ey, fit, ro, on = (t[..., None] for t in (bundles.ext_x, bundles.ext_y, bundles.fit,
+                                                  bundles.ro, bundles.on))
+    gc = tuple(_dot3(m[k], oc) - _dot3(m[k], X) for k in range(3))
+    uc, ua, ub = (tuple(_dot3(m[k], v) for k in range(3)) for v in (dc, ax, ay))
+    gn = _norm3(gc)
+    sr = smax * fit
+    # the cross product N = u x g, affine in the lane offsets, per component
+    nc, na, nb = _cross(uc, gc), _cross(ua, gc), _cross(ub, gc)
+    lo = [torch.clamp(nc[k].abs() - ((ex * na[k].abs() + ey * nb[k].abs()) + sr * gn), min=0.0)
+          for k in range(3)]
+    n_lo = _norm3(lo)
+    spread = ex * _norm3(ua) + ey * _norm3(ub) + sr
+    u_hi, u_lo = _norm3(uc) + spread, _norm3(uc) - spread
+    d_hi = _norm3(dc) + ex * _norm3(ax) + ey * _norm3(ay) + fit
+    gm = gn + smax * ro
+    env = ENVELOPE * ((smax * d_hi / u_lo + 1.0) * gm + smax * (on + ro + _norm3(X))) + ENVELOPE_FLOOR
+    far = smax * ro + env
+    lb = n_lo / u_hi - far
+    # u . g, affine likewise: above 0 at every pixel puts hit_t below 0
+    h_lo = (_dot3(uc, gc) - ((ex * _dot3(ua, gc).abs() + ey * _dot3(ub, gc).abs()) + sr * gn)
+            - u_hi * far)
+    ok = bundles.usable[..., None] & (u_lo >= UN_MIN) & (g < torch.inf)
+    return (g == -torch.inf) | (ok & ((h_lo > 0.0) | ((lb > 0.0) & (lb * lb > g * GATE_SLACK))))
+
+
+def ray_certainly_gated_plain(rows: torch.Tensor, rays: torch.Tensor, tiles: torch.Tensor,
+                              tiles_w: int, tiles_per_image: int, width: int,
+                              height: int) -> torch.Tensor:
+    """The reject for each (pixel, slot) pair of the tiles `tiles`: [nt, 256,
+    L] in a tile's row-major pixel order, True where the mask of the pixel's
+    8x4 block gates the slot (rows [13+, nt, L])."""
+    bundles = ray_block_bundles_plain(rays, tiles, tiles_w, tiles_per_image, width, height)
+    masks = ray_block_masks_plain(rows, bundles)  # [nt, 8, L]
+    p = torch.arange(TILE_3D * TILE_3D, device=rows.device)
+    block = (p // TILE_3D) // 4 * 2 + (p % TILE_3D) // 8
+    return masks[:, block]
+
+
 def rasterize_eval3d_fwd_plain(
     fields: torch.Tensor, bounds: torch.Tensor, rays: torch.Tensor, n_images: int, tiles_w: int,
     tiles_h: int, width: int, height: int, use_hit_distance: bool, return_normals: bool,
@@ -259,46 +419,56 @@ def rasterize_eval3d_fwd(
     return_normals: bool = False,
     pair_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only
     eval_counts: Optional[torch.Tensor] = None,  # [n_tiles] i32, CUDA only, with pair_counts
+    exact_counts: Optional[torch.Tensor] = None,  # likewise
+    unsound_counts: Optional[torch.Tensor] = None,  # likewise
+    one_origin: Optional[torch.Tensor] = None,  # likewise
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Composite every 16x16 tile front to back along the pixels' rays.
 
     Returns (out [I, H, W, D + 3*normals] f32, T_final [I, H, W] f32).  On
     the card, `pair_counts` receives each tile's contributing (pixel, slot)
-    pairs, which the backward's live pairs must equal, and `eval_counts` the
-    pairs it evaluated.  More than MAX_CHANNELS channels composite in
-    `channel_groups`, each with the geometry rows; the hit channel (the last
-    of D) and the normals ride in the last group.  T and the counters come
-    from the first group.
+    pairs, which the backward's live pairs must equal, `eval_counts` the
+    pairs it evaluated, `exact_counts` those that took the exact path (the
+    early reject's block masks gated the rest), `unsound_counts` the masked
+    pairs that the exact path, run on them too, would not have gated (must
+    be 0), and `one_origin` 1 where every active ray of the tile had one
+    origin (the hoisted route).  More than MAX_CHANNELS channels composite
+    in `channel_groups`, each with the geometry rows; the hit channel (the
+    last of D) and the normals ride in the last group.  T and the counters
+    come from the first group.
     """
     D, n_tiles = _check_args("rasterize_eval3d_fwd", fields, bounds, rays, n_images, tiles_w,
                              tiles_h, width, height, use_hit_distance, return_normals)
+    counters = (pair_counts, eval_counts, exact_counts, unsound_counts, one_origin)
     if D > MAX_CHANNELS:
         hit, nrm = bool(use_hit_distance), bool(return_normals)
         outs = [rasterize_eval3d_fwd(
                     _group_fields(fields, D, c0, c1, hit, nrm), bounds, rays, n_images, tiles_w,
                     tiles_h, width, height, hit and c1 == D, nrm and c1 == D,
-                    *((pair_counts, eval_counts) if c0 == 0 else (None, None)))
+                    *(counters if c0 == 0 else (None,) * 5))
                 for c0, c1 in channel_groups(D)]
         return torch.cat([o[0] for o in outs], dim=-1), outs[0][1]
     if not check_kernel_device("rasterize_eval3d_fwd", fields, bounds, rays):
-        if pair_counts is not None or eval_counts is not None:
-            raise ValueError("pair_counts and eval_counts are filled by the CUDA kernel only")
+        if any(c is not None for c in counters):
+            raise ValueError("pair_counts, eval_counts, exact_counts, unsound_counts and "
+                             "one_origin are filled by the CUDA kernel only")
         return rasterize_eval3d_fwd_plain(fields, bounds, rays, n_images, tiles_w, tiles_h,
                                           width, height, use_hit_distance, return_normals)
-    if eval_counts is not None and pair_counts is None:
-        raise ValueError("eval_counts comes with pair_counts")
+    if pair_counts is None and any(c is not None for c in counters):
+        raise ValueError("eval_counts, exact_counts, unsound_counts and one_origin come with "
+                         "pair_counts")
     lib = _build.load("rasterize_eval3d_fwd")
     dev = fields.device
     out = torch.empty((n_images, height, width, D + 3 * return_normals), dtype=torch.float32,
                       device=dev)
     out_t = torch.empty((n_images, height, width), dtype=torch.float32, device=dev)
-    if pair_counts is not None and eval_counts is None:
-        eval_counts = torch.empty_like(pair_counts)
+    if pair_counts is not None:  # the kernel fills all five counters or none
+        counters = tuple(torch.empty_like(pair_counts) if c is None else c for c in counters)
     code = lib.gs_rasterize_eval3d_fwd(
         fields.data_ptr(), fields.shape[1], bounds.contiguous().data_ptr(), rays.data_ptr(), D,
         int(use_hit_distance), int(return_normals), tiles_w, tiles_w * tiles_h, width, height,
-        n_tiles, out.data_ptr(), out_t.data_ptr(), _counts_ptr(pair_counts, n_tiles, dev),
-        _counts_ptr(eval_counts, n_tiles, dev), _build.stream_of(out),
+        n_tiles, out.data_ptr(), out_t.data_ptr(),
+        *(_counts_ptr(c, n_tiles, dev) for c in counters), _build.stream_of(out),
     )
     _build.check(lib, code, "rasterize_eval3d_fwd")
     rasterize_eval3d_fwd.launches += 1

@@ -579,6 +579,46 @@ def test_k8_search_brackets_on_the_card(cap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True], ids=["float32", "packed"])
+@pytest.mark.parametrize("case", ["empty", "full", "roomy", "truncated"])
+def test_k4_search_brackets_on_the_card(case, packed):
+    """K4 in both modes bit for bit against its plain version where its
+    per-CTA search brackets are stressed: runs of every width from 1 (many
+    of width 1) straddling the 256-slot CTAs, dummy records (one sentinel
+    slot each), and n_slots of 0, equal to the capacity, below it and above
+    it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    I, tw, th, E, R, F = 2, 13, 9, 900, 5000, 9
+    w = torch.randint(1, 41, (R,), generator=g, device=dev)
+    w[torch.rand(R, generator=g, device=dev) < 0.4] = 1
+    dummy = torch.rand(R, generator=g, device=dev) < 0.1
+    w[dummy] = 1
+    cum_in = torch.cumsum(w, 0)
+    x0 = torch.randint(0, tw, (R,), generator=g, device=dev)
+    rr = torch.stack([cum_in - w, cum_in, x0, torch.randint(0, th, (R,), generator=g, device=dev),
+                      torch.where(dummy, I, torch.randint(0, I, (R,), generator=g, device=dev)),
+                      torch.randint(0, E, (R,), generator=g, device=dev)]).to(torch.int32)
+    table = torch.randn(F, E, generator=g, device=dev) * 20.0
+    total = int(cum_in[-1])
+    n, cap = dict(empty=(0, 4096), full=(total, total), roomy=(total, total + 3001),
+                  truncated=(total, total - 777))[case]
+    n_slots = torch.tensor([n], dtype=torch.int32, device=dev)
+    args = (rr.contiguous(), table, n_slots, cap, tw, tw * th, I * tw * th, packed, 16)
+    keys, fields = tg.expand_emission(*args)
+    keys_p, fields_p = tg.expand_emission_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, keys_p)
+    assert torch.equal(fields.view(torch.int32), fields_p.view(torch.int32))
+    n_live = int((keys < I * tw * th).sum())
+    assert n_live == 0 if case == "empty" else 0 < n_live < min(n, cap)  # dummies are sentinels
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("D", [1, 2, 4, 32])
 @pytest.mark.parametrize("hit", [False, True], ids=["no_hit", "hit"])
 @pytest.mark.parametrize("normals", [False, True], ids=["no_normals", "normals"])
@@ -656,6 +696,70 @@ def test_eval3d_kernels_match_plain_versions_on_the_card(D, hit, normals):
     assert (v_slot[:, int(bounds[-1]):] == 0).all()
     if hit:
         assert bool((v_slot[16 + D - 1] == 0).all())  # the input hit channel's row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["seeded", "opacity_edge", "gate_edge", "reject_edge",
+                                  "hit_edge", "scales", "clamp", "rolling", "lidar", "lidar_edge",
+                                  "nonfinite"])
+def test_eval3d_gate_boundary_on_the_card(case):
+    """The early reject and the hoisting of csrc/ray3d.cuh on the boundary
+    scenes of tests/test_torch_ray_gate.py (built on the CPU, then moved):
+    K7a's counting build, which also runs the exact path on every rejected
+    pair, finds none that the exact path keeps; the reject gates some pairs
+    in every scene; the tiles of a global shutter take the hoisted route of
+    one origin, those of a rolling shutter and a moving lidar the per-pair
+    route; K7a equals its plain version bit for bit, and its timed build
+    (two slots' responses at once) equals its counting build (one slot at
+    a time); K7b's live pairs equal K7a's contributing
+    pairs, and each of its finite slots' rows is within 1e-5 of that row's
+    largest entry of its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import rasterize_eval3d_kernel as t3
+    from test_torch_ray_gate import boundary_scene
+
+    dev = torch.device("cuda")
+    fields_cpu, bounds_cpu, rays_cpu, geo = boundary_scene(case)
+    fields, bounds, rays = fields_cpu.to(dev), bounds_cpu.to(dev), rays_cpu.to(dev)
+    n_tiles = bounds.shape[0] - 1
+    kept, n_eval, n_exact, unsound, one = (torch.empty(n_tiles, dtype=torch.int32, device=dev)
+                                           for _ in range(5))
+    fwd = t3.rasterize_eval3d_fwd(fields, bounds, rays, *geo, pair_counts=kept,
+                                  eval_counts=n_eval, exact_counts=n_exact,
+                                  unsound_counts=unsound, one_origin=one)
+    plain = t3.rasterize_eval3d_fwd_plain(fields, bounds, rays, *geo)
+    timed = t3.rasterize_eval3d_fwd(fields, bounds, rays, *geo)
+    torch.cuda.synchronize()
+    assert int(unsound.sum()) == 0, f"{int(unsound.sum())} rejected pairs the exact path keeps"
+    assert 0 < int(n_exact.sum()) < int(n_eval.sum())
+    assert all(torch.equal(a, b) for a, b in zip(fwd, plain)), "K7a != its plain version"
+    assert all(torch.equal(a, b) for a, b in zip(fwd, timed)), "the timed build differs"
+    if case in ("seeded", "gate_edge", "clamp"):
+        assert bool((one == 1).all()), "a global shutter's tile took the per-pair route"
+    if case in ("rolling", "lidar", "lidar_edge"):
+        assert int(one.sum()) == 0, "a moving sensor's tile took the hoisted route"
+
+    out, t_fin = fwd
+    g = torch.Generator(device=dev).manual_seed(2)
+    v_pix = torch.randn(out.shape, generator=g, device=dev)
+    v_t = torch.randn(t_fin.shape, generator=g, device=dev)
+    live = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    bargs = (fields, bounds, rays, *geo, v_pix, v_t, out, t_fin)
+    v_slot, v_rays = t3.rasterize_eval3d_bwd(*bargs, live_counts=live)
+    v_slot_p, v_rays_p, n_live_p = t3.rasterize_eval3d_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(live, kept), "the backward's live pairs differ from the forward's"
+    assert int(live.sum()) == n_live_p > 0
+    # a finite slot's rows; the plain version's also multiply the zero terms
+    # of gated pairs by a NaN ray's response, the kernel's sum live pairs only
+    finite = torch.isfinite(fields[: t3.ROW_OP + 1]).all(0)
+    assert bool(torch.isfinite(v_slot[:, finite]).all())
+    cols = finite & torch.isfinite(v_slot_p).all(0)
+    rows = [r for r in range(v_slot.shape[0]) if r != 16 + 4 - 1]  # the input hit channel's row
+    _rows_within(v_slot[rows][:, cols], v_slot_p[rows][:, cols], 1e-5)
+    ok = torch.isfinite(rays).all(-1) & torch.isfinite(v_rays_p).all(-1)
+    _rows_within(v_rays[ok].t(), v_rays_p[ok].t(), 1e-5)
 
 
 def _segment_case(case, F, dev, g):
