@@ -142,7 +142,23 @@ Phases:
      line's K2 record is this one, its path's, with the 4k training step's
      numbers under `4k_check`.  The
      `kernels` line keeps the 3DGUT shapes' numbers for K7a and K7b, the
-     larger error of the two checks, and the lidar's under `av_check`.
+     larger error of the two checks, and the lidar's under `av_check`;
+ 16. COLMAP training: the grid scene renders 9 look-at views at 3840x2160
+     exactly on the card, written as PNGs (zlib) beside a binary COLMAP
+     model (one PINHOLE camera, the 9 views, the centre cell's 111,785
+     points and colours as points3D.bin); the datasets.colmap Parser reads
+     it (timed), and gsplat_tpu_torch.trainer.Trainer(Config(data="colmap",
+     factor=1, save_ply=True)) at its defaults (the default strategy,
+     packed payload and gradients) trains 6 steps on the 7 views of the
+     test_every=8 split.  Launch counts are set to 0 just before train()
+     and read just after; K3, K4 packed, K1 packed, K2 packed and K5 must
+     all be > 0.  Each step prints its ms, peak memory and loss (finite,
+     finite gradients, no overflow); the eval of the training views prints
+     PSNR, SSIM, LPIPS (None: no weights file), the LPIPS proxy, the
+     gaussians, the device memory and the time since training started, all
+     finite; the .ply of the live gaussians (its bytes printed) goes back
+     through load_checkpoint and render_scene and must give, bit for bit,
+     the image of the trainer's own live parameters.
 It prints one `kernels` JSON line (14 kernels, each with its launches on
 every path and `launches` on its own: MAIN_PATH; K1's records also carry
 `exp_bound_ms`, one exp per evaluated pair on the special-function units;
@@ -158,6 +174,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -187,7 +204,14 @@ from gsplat_tpu_torch.strategy import ops as strategy_ops
 from gsplat_tpu_torch.ops.projection import fully_fused_projection
 from gsplat_tpu_torch.ops.sh import spherical_harmonics
 from gsplat_tpu_torch.rendering import _campos_from_viewmats
-from gsplat_tpu_torch.scene import GaussianInferenceScene, Stage, render_scene, splats_from_numpy
+from gsplat_tpu_torch.datasets import Parser, encode_png, write_model_binary
+from gsplat_tpu_torch.scene import (
+    GaussianInferenceScene,
+    Stage,
+    load_checkpoint,
+    render_scene,
+    splats_from_numpy,
+)
 from gsplat_tpu_torch.sensors.lidars import SpinningDirection, make_lidar
 
 SEED = 0
@@ -272,6 +296,8 @@ TRAINING_KERNELS = SERVING_KERNELS + ("rasterize_bwd_packed", "segment_rowsum")
 SURFEL_KERNELS = ("expand_emission_aabb", "gather_records", "rasterize2d_fwd", "rasterize2d_bwd",
                   "segment_rowsum")
 SURFEL_STEPS = 9
+COLMAP_VIEWS = 9  # test_every=8 leaves views 0 and 8 out: 7 training views
+COLMAP_STEPS = 6
 # the default strategy's schedule, cut so that 9 steps refine (at steps 3
 # and 6) and reset opacities (at 6)
 SURFEL_SCHEDULE = dict(refine_start_iter=1, refine_every=3, reset_every=6)
@@ -868,21 +894,19 @@ def size_training_capacities(tr, log) -> int:
                 out.append(int(meta["n_isects"]) + n_vis)
         return max(out)
 
-    target = tr.target_splats()
-    renders = {
-        "model": lambda vm, K: tr.render(tr.params, tr.alive, vm, K, 0),
-        "targets": lambda vm, K: rasterization(
+    renders = {"model": lambda vm, K: tr.render(tr.params, tr.alive, vm, K, 0)}
+    if tr.parser is None:  # rendered targets (npz), not photographs
+        target = tr.target_splats()
+        renders["targets"] = lambda vm, K: rasterization(
             *target, vm, K, tr.width, tr.height, isect_capacity=cfg.isect_capacity,
-            row_capacity=cfg.row_capacity),
-    }
+            row_capacity=cfg.row_capacity)
     need = {}
     for name, render in renders.items():
         bound = counts(render, 1 << 16)  # overflows: the AABB bound
         need[name] = counts(render, bound + 4096)  # exact
-    cap = max(int(need["model"] * TRAIN_HEADROOM), need["targets"]) + 4096
+    cap = max(int(need["model"] * TRAIN_HEADROOM), need.get("targets", 0)) + 4096
     cfg.isect_capacity = cfg.row_capacity = cap
-    log(f"training capacities: model {need['model']}, targets {need['targets']} slots "
-        f"-> isect and rows {cap}")
+    log(f"training capacities: {json.dumps(need)} slots -> isect and rows {cap}")
     return cap
 
 
@@ -1438,9 +1462,9 @@ def surfel_phases(dev, raw, viewmats, K, wh, timer, log, steps: int = SURFEL_STE
         return out
 
     def recorded_eval(step, *args, **kw):
-        psnr = eval_fn(step, *args, **kw)
+        psnr, ssim = eval_fn(step, *args, **kw)
         evals.append((kw.get("tag"), psnr))
-        return psnr
+        return psnr, ssim
 
     log_memory(dev, "before the 2DGS train()", log)
     trainer2d_mod.rasterization_2dgs, tr.eval = counted_render, recorded_eval
@@ -2176,10 +2200,13 @@ def exp_bound_ms(pairs: int) -> float:
 
 
 class Serving:
-    """The synthetic scene registered on a Stage, and its request cameras."""
+    """The synthetic scene registered on a Stage, and its request cameras
+    (`n_views` of them; `raw`: the scene's parameters when the caller made
+    them already)."""
 
-    def __init__(self, dev: torch.device, n_cell: int, grid: int, serve_wh):
-        self.raw = make_splats(n_cell, grid, SEED)
+    def __init__(self, dev: torch.device, n_cell: int, grid: int, serve_wh, raw=None,
+                 n_views: int = N_VIEWS):
+        self.raw = make_splats(n_cell, grid, SEED) if raw is None else raw
         self.gscene = splats_from_numpy(self.raw, device=dev, scene_id="synthetic_grid5")
         self.scene = GaussianInferenceScene.from_gaussian_scene(self.gscene, id=self.gscene.id)
         self.stage = Stage()
@@ -2187,7 +2214,7 @@ class Serving:
             self.gscene, lambda splats, alive=None, **kw: render_scene(self.scene, **kw)
         )
         self.W, self.H = serve_wh
-        self.viewmats, self.K = look_at_cameras(self.raw["means"], N_VIEWS, *serve_wh)
+        self.viewmats, self.K = look_at_cameras(self.raw["means"], n_views, *serve_wh)
         self.cap = self.row_cap = 4 * self.scene.num_gaussians
 
     def request(self, vm, **kw):
@@ -2264,6 +2291,117 @@ def fast_class(a: torch.Tensor, b: torch.Tensor, what: str, log) -> None:
     q999 = float(torch.topk(diff, k).values.min())
     log(f"{what}: mean |d| {mean:.3g}, 99.9% {q999:.3g}, max {float(diff.max()):.3g}")
     require(mean < 5e-3 and q999 < 0.05, f"{what}: mean {mean}, 99.9% {q999}")
+
+
+def colmap_phase(dev, raw, n_cell: int, grid: int, wh, log):
+    """Phase 16: train from a COLMAP scene written here.  The grid scene
+    renders COLMAP_VIEWS look-at views exactly on the card (the targets,
+    written as PNGs with zlib); a binary model holds one PINHOLE camera, the
+    views and the centre cell's n_cell points with their colours.  Then
+    Trainer(Config(data="colmap", save_ply=True)) at its defaults (the
+    default strategy, packed payload and gradients) takes COLMAP_STEPS steps
+    on the training split (every 8th view left out), evaluates the training
+    views and writes the live gaussians as a .ply, which load_checkpoint
+    reads back and render_scene serves: bit for bit the image of the
+    trainer's own live parameters.  Returns the launch counts of train()."""
+    W, H = wh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_colmap_")
+    t0 = time.perf_counter()
+    sv = Serving(dev, n_cell, grid, wh, raw=raw, n_views=COLMAP_VIEWS)
+    sv.size_capacities()
+    names = [f"view_{i:02d}.png" for i in range(COLMAP_VIEWS)]
+    os.makedirs(os.path.join(tmp, "images"))
+    for name, vm in zip(names, sv.viewmats):
+        img, _, meta = sv.request(vm, fast=False)
+        require(not bool(meta["isect_overflow"]), f"colmap target {name}: isect_overflow")
+        rgb = torch.round(torch.clamp(img[0], 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+        with open(os.path.join(tmp, "images", name), "wb") as f:
+            f.write(encode_png(rgb, level=1))
+    c = grid * grid // 2  # the centre cell, offset 0: the base points
+    pts = raw["means"][c * n_cell:(c + 1) * n_cell]
+    colors = np.clip(raw["sh0"][c * n_cell:(c + 1) * n_cell, 0] * SH_C0 + 0.5, 0.0, 1.0)
+    K = sv.K
+    cams = {1: dict(model="PINHOLE", width=W, height=H,
+                    params=np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], np.float64))}
+    write_model_binary(os.path.join(tmp, "sparse", "0"), cams, sv.viewmats, [1] * COLMAP_VIEWS,
+                       names, pts, np.round(colors * 255.0).astype(np.uint8))
+    del sv
+    png_bytes = sum(os.path.getsize(os.path.join(tmp, "images", n)) for n in names)
+    log(f"colmap scene: {COLMAP_VIEWS} views at {W}x{H} rendered and written ({png_bytes} PNG "
+        f"bytes), {len(pts)} points, in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parser = Parser(tmp, factor=1, normalize=True, test_every=8)
+    parse_s = time.perf_counter() - t0
+    result_dir = os.path.join(tmp, "result")
+    cfg = trainer_mod.Config(
+        data="colmap", data_dir=tmp, factor=1, result_dir=result_dir, max_steps=COLMAP_STEPS,
+        eval_every=COLMAP_STEPS, save_every=COLMAP_STEPS, save_ply=True,
+        sh_degree_interval=TRAIN_SH_INTERVAL, fixed_batch=True, seed=SEED)
+    t0 = time.perf_counter()
+    tr = trainer_mod.Trainer(cfg, device=dev)
+    setup_s = time.perf_counter() - t0
+    require(tr.parser.image_names == parser.image_names == names, "colmap views out of order")
+    n_train = len(tr.train_views)
+    require(n_train == COLMAP_VIEWS - 2 and int(tr.alive.sum()) == len(pts),
+            f"colmap trainer: {n_train} training views, {int(tr.alive.sum())} gaussians")
+    size_training_capacities(tr, log)
+    t0 = time.perf_counter()
+    targets = tr.colmap_targets()
+    load_s = time.perf_counter() - t0
+    require(targets.shape == (n_train, H, W, 3) and float(targets.mean()) > 0,
+            f"colmap targets {tuple(targets.shape)}")
+    log(json.dumps({"colmap_parse_s": parse_s, "trainer_setup_s": setup_s,
+                    "targets_decode_s": load_s, "train_views": n_train,
+                    "gaussians": int(tr.alive.sum()), "capacity": tr.capacity}))
+
+    recorder = StepRecorder(tr)
+    reset_launches()
+    t0 = time.perf_counter()
+    tr.train(targets=targets)
+    launches = read_launches()
+    train_s = time.perf_counter() - t0
+    recorder.restore()
+    hist = recorder.records
+    for r in hist:
+        log("colmap_train " + json.dumps(r))
+    log("colmap training launches " + json.dumps(launches))
+    for name in TRAINING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the colmap training path")
+    require(len(hist) == COLMAP_STEPS, f"{len(hist)} colmap steps ran")
+    for r in hist:
+        require(math.isfinite(r["loss"]) and r["grads_finite"] and not r["overflow"],
+                f"colmap step {r['step']}: loss {r['loss']}, finite gradients "
+                f"{r['grads_finite']}, overflow {r['overflow']}")
+    step = COLMAP_STEPS - 1
+    with open(os.path.join(result_dir, "stats", f"eval_step{step:04d}.json")) as f:
+        stats = json.load(f)
+    require(stats["tag"] == "eval" and all(math.isfinite(stats[k]) for k in (
+        "psnr", "ssim", "lpips_proxy", "mem", "ellipse_time")), f"colmap eval {stats}")
+    ply = os.path.join(result_dir, "ply", f"point_cloud_{step}.ply")
+    peak = max(r["peak_gib"] for r in hist) if dev.type == "cuda" else None
+    log(json.dumps({"colmap_eval": {k: stats[k] for k in (
+        "psnr", "ssim", "lpips", "lpips_proxy", "n_gs", "mem", "ellipse_time")},
+        "train_s": train_s, "step_ms": [r["ms"] for r in hist], "peak_gib": peak,
+        "ply_bytes": os.path.getsize(ply)}))
+
+    # The .ply served: bit for bit the image of the trainer's own live rows.
+    images = []
+    live = {k: v[tr.alive].cpu().numpy() for k, v in tr.params.items()}
+    for g in (load_checkpoint(ply, device=dev), splats_from_numpy(live, device=dev)):
+        require(g.num_gaussians == stats["n_gs"], "the .ply's gaussians differ from the eval's")
+        scene = GaussianInferenceScene.from_gaussian_scene(g, id=g.id)
+        img, alpha, meta = render_scene(
+            scene, viewmat=tr.viewmats[0], K=tr.Ks[0], width=W, height=H,
+            isect_capacity=cfg.isect_capacity, row_capacity=cfg.row_capacity)
+        require(not bool(meta["isect_overflow"]) and float(alpha.mean()) > 0,
+                "the .ply's render overflowed or is empty")
+        images.append((img, alpha))
+    require(torch.equal(images[0][0], images[1][0]) and torch.equal(images[0][1], images[1][1]),
+            "the .ply's render differs from the trainer's live parameters'")
+    log(f"colmap .ply: {stats['n_gs']} gaussians served through load_checkpoint and "
+        f"render_scene, bit for bit the trainer's own")
+    shutil.rmtree(tmp)
+    return launches
 
 
 def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, log=print,
@@ -2444,6 +2582,10 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         torch.cuda.empty_cache()
     # The AV trainer: cameras and a spinning lidar on a street scene.
     av_launches, av_records, av_k9, av_k2, av_k1 = av_phase(dev, timer, log)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # Training from a COLMAP scene, with the eval and the .ply served again.
+    colmap_launches = colmap_phase(dev, raw, n_cell, grid, (W, H), log)
     for rec, av_rec in zip(gut_records, av_records):
         rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
         rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2476,7 +2618,8 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     records = records + train_records + surfel_records + gut_records
     # each kernel's launches on every path, and on its own path as `launches`
     paths = {"serving": launches, "serving_exact": exact_launches, "training": train_launches,
-             "2dgs": surfel_launches, "3dgut": gut_launches, "av": av_launches}
+             "2dgs": surfel_launches, "3dgut": gut_launches, "av": av_launches,
+             "colmap": colmap_launches}
     for rec in records:
         rec["launches_by_path"] = {p: counts[rec["name"]] for p, counts in paths.items()}
         rec["launches"] = rec["launches_by_path"][MAIN_PATH[rec["name"]]]

@@ -3,17 +3,17 @@ PyTorch / CUDA port (Stage + inference scene, render_scene's fast default).
 
 Port of examples/sample_inference.py for the trainer's `.npz` checkpoint
 (`p_*` parameters and `alive`, as examples/simple_trainer.py and
-examples/simple_trainer_torch.py write them): the alive rows are activated
-(exp, sigmoid, unit quats), packed into a GaussianInferenceScene through
+examples/simple_trainer_torch.py write them) or a 3DGS `.ply` (the
+trainers' `save_ply` export): the alive rows are activated (exp, sigmoid,
+unit quats), packed into a GaussianInferenceScene through
 `from_gaussian_tensors`, registered on a Stage and rendered through
-render_scene at its default, the bf16-pair packed fast path.  The `.ply`
-branch needs the exporter's loader, ROADMAP Queue 1 item 12.
+render_scene at its default, the bf16-pair packed fast path.
 
     python examples/sample_inference_torch.py --ckpt results/run/ckpt_6999.npz \
         --output-dir results/sample_inference --n-views 8 [--device cpu]
 
-Runs on the CUDA card unless --device cpu.  The PNGs are written with the
-standard library (zlib and struct).
+Runs on the CUDA card unless --device cpu.  The PNGs are written with
+zlib (`gsplat_tpu_torch.datasets.encode_png`), no imaging package.
 """
 
 from __future__ import annotations
@@ -21,9 +21,7 @@ from __future__ import annotations
 import argparse
 import math
 import os
-import struct
 import sys
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +29,7 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from gsplat_tpu_torch._device import resolve_device
+from gsplat_tpu_torch.datasets import encode_png
 from gsplat_tpu_torch.scene import GaussianInferenceScene, Stage, load_checkpoint, render_scene
 
 
@@ -57,21 +56,13 @@ def orbit_cameras(center, radius, height, n_views, fov_deg, W, H):
 
 def write_png(path: str, rgb: np.ndarray) -> None:
     """An 8-bit RGB image [H, W, 3] as a PNG: one IDAT of unfiltered rows."""
-    h, w, _ = rgb.shape
-    raw = b"".join(b"\x00" + np.ascontiguousarray(rgb[y]).tobytes() for y in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+        f.write(encode_png(rgb))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", required=True, help="the trainer's .npz checkpoint")
+    ap.add_argument("--ckpt", required=True, help="the trainer's .npz checkpoint or a .ply")
     ap.add_argument("--output-dir", default="results/sample_inference")
     ap.add_argument("--n-views", type=int, default=8)
     ap.add_argument("--width", type=int, default=648)
@@ -80,9 +71,6 @@ def main(argv=None):
     ap.add_argument("--isect-capacity", type=int, default=4 * 1024 * 1024)
     ap.add_argument("--device", default=None, help="the card unless 'cpu'")
     args = ap.parse_args(argv)
-    if args.ckpt.endswith(".ply"):
-        raise NotImplementedError(".ply checkpoints need the exporter's loader "
-                                  "(ROADMAP Queue 1 item 12); pass a trainer .npz")
     dev = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
 

@@ -148,7 +148,8 @@ _FLOAT = ctypes.c_float
 # C signatures of every entry, by library.
 _SIGNATURES = {
     "expand": {
-        "gs_expand_rows": [_VOID, _VOID, _LL, _VOID, _LL, _FLOAT, _INT, _VOID, _VOID],
+        "gs_expand_rows": [_VOID, _VOID, _LL, _VOID, _LL, _FLOAT, _INT, _VOID, _LL, _VOID,
+                           _VOID],
         "gs_expand_emission": [_VOID, _LL, _VOID, _LL, _INT, _VOID, _LL, _INT,
                                _INT, _INT, _INT, _INT, _VOID, _LL, _VOID, _VOID, _VOID],
         "gs_expand_aabb": [_VOID, _VOID, _LL, _VOID, _VOID, _INT, _VOID, _LL, _INT, _INT,

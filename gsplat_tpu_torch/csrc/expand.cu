@@ -3,10 +3,24 @@
 //
 // K3 `expand_rows` replaces gsplat_tpu/ops/gather_pallas.py:_expand_rows_kernel
 // (:396, wrapper expand_rows :526).  One thread per row record r: it finds
-// its gaussian by binary search (the first g with gh_in[g] > r) and computes
-// the exact x-interval of the alpha >= 1/255 ellipse over the record's tile
-// row, in f32 and in the same order as the JAX kernel (:465-512).
-//
+// its gaussian (the first g with gh_in[g] > r) and computes the exact
+// x-interval of the alpha >= 1/255 ellipse over the record's tile row, in
+// f32 and in the same order as the JAX kernel (:465-512).  The search takes
+// K4's design: K8's prologue (search_brackets_kernel) finds br[b], the
+// gaussian of CTA b's first row, for all CTAs at once; each CTA then stages
+// the 16 columns of its gaussians br[b] .. min(br[b+1], E-1, br[b]+255) in
+// shared memory with coalesced loads, and each thread searches the staged
+// gh_in there and computes from the staged columns (where ~22 dependent
+// loads of gh_in in device memory, then 16 scattered column reads, took the
+// row's thread before).
+//   The staging lemma: a CTA's 256 rows span at most 256 gaussians.  Every
+// gaussian of the visible prefix holds at least one row (ops/rasterize.py:
+// h_pad = max(h_t, 1) on the prefix, 0 on the culled suffix), so gh_in rises
+// by at least 1 from one prefix gaussian to the next, and rows r < r' give
+// g(r') - g(r) <= r' - r.  A row below n_rows (n_rows <= gh_in[E-1]) has its
+// gaussian in the prefix; rows at or past n_rows map to none.  So the
+// gaussians of CTA b's live rows lie in [br[b], br[b] + 255], and below
+// br[b+1] + 1 (br[b+1] = E past the live rows).
 // K4 `expand_emission` replaces gather_pallas.py:_expand2_kernel (:584,
 // wrapper expand_emission2 :721), in both its layouts.  One thread per
 // emission slot s: it finds its row record in rr_cum_in, computes the tile
@@ -44,8 +58,8 @@
 // fields is made.
 //
 // What bounds them on the H100: both move little data per thread and do
-// little arithmetic (a ~20-step binary search, ~40 flops for K3, one
-// F-float copy for K4), so they are bound by device-memory bytes: K3 by
+// little arithmetic (a search, ~40 flops for K3, one F-float copy for
+// K4), so they are bound by device-memory bytes: K3 by
 // its [16, E] gaussian table and [5, R] output, K4 by its [F, cap] output
 // ([ceil(F/2), cap] packed: the roundings are a few operations per word).
 // The design keeps every write coalesced (thread i writes element i of each
@@ -98,36 +112,58 @@ __device__ __forceinline__ float dx_lo(float u, float a, float b, float sig, flo
 __global__ void expand_rows_kernel(const float* __restrict__ gg_f,
                                    const int* __restrict__ gg_i, long long E,
                                    const int* __restrict__ n_rows_p, long long row_cap,
-                                   float ts, int n_images, int* __restrict__ out) {
+                                   float ts, int n_images, const long long* __restrict__ br,
+                                   int* __restrict__ out) {
+  // The CTA's gaussians [lo, lo + count), all 16 columns (the lemma above:
+  // at most kThreads of them).
+  __shared__ float sf[10][kThreads];
+  __shared__ int si[6][kThreads];
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long lo = br[blockIdx.x];
+  const long long last = min(min(br[blockIdx.x + 1], E - 1), lo + kThreads - 1);
+  const int count = lo < E ? (int)(last - lo + 1) : 0;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+#pragma unroll
+    for (int f = 0; f < 10; ++f) sf[f][i] = gg_f[f * E + lo + i];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) si[f][i] = gg_i[f * E + lo + i];
+  }
+  __syncthreads();
   if (r >= row_cap) return;
   int x0 = 0, ty = 0, im = n_images, w = 0, gid = 0;
-  const long long n_rows = *n_rows_p;
-  const long long g = r < n_rows ? upper_bound(gg_i + GI_IN * E, E, r) : E;
-  if (g < E) {
-    gid = (int)g;
-    im = gg_i[GI_IM * E + g];
+  int j = count;  // the staged gaussian of row r, count if none
+  if (r < *n_rows_p) {
+    int a = 0, b = count;  // the first staged gaussian with gh_in > r
+    while (a < b) {
+      const int mid = (a + b) >> 1;
+      if ((long long)si[GI_IN][mid] > r) b = mid; else a = mid + 1;
+    }
+    j = a;
+  }
+  if (j < count) {
+    gid = (int)(lo + j);
+    im = si[GI_IM][j];
     if (im == n_images) {  // dummy record: one sentinel slot
       w = 1;
     } else {
-      const int q = (int)(r - gg_i[GI_EX * E + g]);
-      ty = gg_i[GI_RY0 * E + g] + q;
-      const int tminx = gg_i[GI_TMINX * E + g];
-      const int tmaxx = gg_i[GI_TMAXX * E + g];
+      const int q = (int)(r - si[GI_EX][j]);
+      ty = si[GI_RY0][j] + q;
+      const int tminx = si[GI_TMINX][j];
+      const int tmaxx = si[GI_TMAXX][j];
       int x1;
-      if (gg_f[GF_AABB * E + g] > 0.5f) {
+      if (sf[GF_AABB][j] > 0.5f) {
         x0 = tminx;
         x1 = tmaxx;
       } else {
-        const float mx = gg_f[GF_MX * E + g];
-        const float my = gg_f[GF_MY * E + g];
-        const float a = fmaxf(gg_f[GF_A * E + g], 1e-12f);
-        const float b = gg_f[GF_B * E + g];
-        const float c = fmaxf(gg_f[GF_C * E + g], 1e-12f);
-        const float sig = gg_f[GF_SIG * E + g];
-        const float yext = gg_f[GF_YEXT * E + g];
-        const float xext = gg_f[GF_XEXT * E + g];
-        const float det = gg_f[GF_DET * E + g];
+        const float mx = sf[GF_MX][j];
+        const float my = sf[GF_MY][j];
+        const float a = fmaxf(sf[GF_A][j], 1e-12f);
+        const float b = sf[GF_B][j];
+        const float c = fmaxf(sf[GF_C][j], 1e-12f);
+        const float sig = sf[GF_SIG][j];
+        const float yext = sf[GF_YEXT][j];
+        const float xext = sf[GF_XEXT][j];
+        const float det = sf[GF_DET][j];
 
         const float u0 = (float)ty * ts - my;
         const float u1 = u0 + ts;
@@ -137,11 +173,11 @@ __global__ void expand_rows_kernel(const float* __restrict__ gg_f,
         const float u_star_lo = (b / c) * xext;
         float hi = fmaxf(dx_hi(uc0, a, b, sig, det), dx_hi(uc1, a, b, sig, det));
         if (u_star_hi >= uc0 && u_star_hi <= uc1) hi = xext;
-        float lo = fminf(dx_lo(uc0, a, b, sig, det), dx_lo(uc1, a, b, sig, det));
-        if (u_star_lo >= uc0 && u_star_lo <= uc1) lo = -xext;
+        float lo_x = fminf(dx_lo(uc0, a, b, sig, det), dx_lo(uc1, a, b, sig, det));
+        if (u_star_lo >= uc0 && u_star_lo <= uc1) lo_x = -xext;
         hi = hi + 1e-3f;
-        lo = lo - 1e-3f;
-        x0 = (int)floorf((mx + lo) / ts);
+        lo_x = lo_x - 1e-3f;
+        x0 = (int)floorf((mx + lo_x) / ts);
         x0 = min(max(x0, tminx), max(tmaxx - 1, tminx));
         x1 = (int)ceilf((mx + hi) / ts);
         x1 = min(max(x1, x0 + 1), tmaxx);
@@ -278,14 +314,21 @@ const char* gs_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// gg_f [10, E] f32, gg_i [6, E] i32, n_rows [1] i32 (device) -> out [5, row_cap]
-// i32 rows (x0, ty, im, w, gid).
+// gg_f [10, E] f32, gg_i [6, E] i32, n_rows [1] i32 (device), scratch br
+// [n_br] i64 with n_br >= ceil(row_cap / 256) + 1 -> out [5, row_cap] i32
+// rows (x0, ty, im, w, gid).
 int gs_expand_rows(const float* gg_f, const int* gg_i, long long E,
                    const int* n_rows, long long row_cap, float tile_size,
-                   int n_images, int* out, cudaStream_t stream) {
-  if (row_cap > 0)
-    expand_rows_kernel<<<blocks_for(row_cap), kThreads, 0, stream>>>(
-        gg_f, gg_i, E, n_rows, row_cap, tile_size, n_images, out);
+                   int n_images, long long* br, long long n_br, int* out,
+                   cudaStream_t stream) {
+  if (row_cap > 0) {
+    const long long blocks = blocks_for(row_cap);
+    if (n_br < blocks + 1) return (int)cudaErrorInvalidValue;
+    search_brackets_kernel<<<blocks_for(blocks + 1), kThreads, 0, stream>>>(
+        gg_i + GI_IN * E, E, n_rows, row_cap, kThreads, blocks + 1, br);
+    expand_rows_kernel<<<(unsigned int)blocks, kThreads, 0, stream>>>(
+        gg_f, gg_i, E, n_rows, row_cap, tile_size, n_images, br, out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -64,6 +64,9 @@ def expand_rows_plain(
     """Plain version of K3: (x0, ty, im, w, gid), each int32 [row_cap]."""
     E = gg_f.shape[1]
     dev = gg_f.device
+    if E == 0:  # no gaussian: every record is empty
+        zero = torch.zeros(row_cap, dtype=torch.int32, device=dev)
+        return zero, zero.clone(), torch.full_like(zero, n_images), zero.clone(), zero.clone()
     r = torch.arange(row_cap, dtype=torch.int32, device=dev)
     g = torch.searchsorted(gg_i[GI_IN].contiguous(), r, right=True)
     found = (r < n_rows) & (g < E)
@@ -148,9 +151,12 @@ def expand_rows(
         return expand_rows_plain(gg_f, gg_i, n_rows, row_cap, tile_size, n_images)
     lib = _build.load("expand")
     out = torch.empty((5, row_cap), dtype=torch.int32, device=gg_f.device)
+    # the gaussian of each 256-row CTA's first row, the search's brackets
+    br = torch.empty((-(-row_cap // 256) + 1,), dtype=torch.int64, device=gg_f.device)
     code = lib.gs_expand_rows(
         gg_f.data_ptr(), gg_i.data_ptr(), gg_f.shape[1], n_rows.data_ptr(),
-        row_cap, float(tile_size), n_images, out.data_ptr(), _build.stream_of(out),
+        row_cap, float(tile_size), n_images, br.data_ptr(), br.shape[0], out.data_ptr(),
+        _build.stream_of(out),
     )
     _build.check(lib, code, "expand_rows")
     expand_rows.launches += 1

@@ -3,7 +3,8 @@
 `splats_from_numpy` takes the JAX package's parameter dict {means, quats,
 scales (log), opacities (logit), sh0, shN} as numpy arrays;
 `load_checkpoint` reads the trainer's `.npz` checkpoint (`p_*` parameter
-keys and `alive`, as examples/simple_trainer.py writes them).  Both return
+keys and `alive`, as examples/simple_trainer.py writes them) or its `.ply`
+export.  Both return
 a raw-parameter GaussianScene; GaussianInferenceScene.from_gaussian_scene
 applies the activations.
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..exporter import load_ply_to_splats
 from ..optimizers.adam import AdamState, adam_init
 from .components import GaussianScene
 
@@ -48,8 +50,14 @@ def splats_from_numpy(
 
 
 def load_checkpoint(path: str, *, device: DeviceLike = None) -> GaussianScene:
-    """Read a trainer `.npz` checkpoint into a raw-parameter GaussianScene."""
+    """Read a trainer `.npz` checkpoint, or a 3DGS `.ply` (the trainer's
+    `save_ply` export), into a raw-parameter GaussianScene: log scales and
+    logit opacities, as both files store them; a `.ply` holds only live
+    gaussians, so its scene has no `alive` mask."""
     dev = resolve_device(device)
+    if path.endswith(".ply"):
+        return splats_from_numpy(load_ply_to_splats(path), device=dev,
+                                 scene_id=os.path.basename(path))
     with np.load(path) as d:
         splats = {k[2:]: np.asarray(d[k]) for k in d.files if k.startswith("p_")}
         alive = np.asarray(d["alive"]) if "alive" in d.files else None

@@ -3,26 +3,34 @@ densification strategy (default or MCMC), on a capacity-padded model with an
 `alive` mask.
 
 Port of `examples/simple_trainer.py` (Config, knn_mean_dist, create_splats,
-Runner.__init__ on its npz branch with either strategy, render,
-make_train_step, make_update_step, train, _make_npz_targets, eval with PSNR
-only, _save, _load).  As in the JAX trainer, `render` (the training step and
-the eval) takes the bf16-pair packed sort payload and packed per-slot
-gradients by default (`Config.pack_payload`, `Config.pack_grads`, both
-True); set both False for the exact float32 path.  The targets are rendered
+Runner.__init__ on its colmap and npz branches with either strategy,
+render, make_train_step, make_update_step, train, _make_npz_targets, eval,
+_save with its `.ply` export, _load).  As in the JAX trainer, `render` (the
+training step and the eval) takes the bf16-pair packed sort payload and
+packed per-slot gradients by default (`Config.pack_payload`,
+`Config.pack_grads`, both True); set both False for the exact float32 path.  The targets are rendered
 exactly either way.  The model has a static capacity
 (`capacity`, 0 meaning 6x the initial points, for the default strategy;
 `cap_max` for MCMC) as in the JAX trainer, so the two compare step by step:
 the same seed gives the same initial parameters and the same batch order.
 
-The data is an npz-like mapping {means3d [N, 3], colors [N, 3] in 0..255,
-viewmats [V, 4, 4], Ks [V, 3, 3], width, height}: pass it as `data`, or name
-a `.npz` file in `Config.data_dir` (or the GSPLAT_TPU_TEST_DATA environment
-variable).  Targets are clean renders of the full point cloud; the last view
-is held out.  The trainer runs on the card unless `device="cpu"`.
+The data is a COLMAP scene (`Config.data="colmap"`, the default, as in
+the JAX trainer): `Config.data_dir` holds `sparse/0` (binary or text model)
+and `images_{factor}` (or `images`); the views of the `test_every=8`
+training split are the targets (datasets/colmap.py), the points of
+`points3D` the initial gaussians, and the eval reports PSNR, SSIM, LPIPS
+(with `Config.lpips_weights`), the LPIPS proxy, the gaussians, the device
+memory and the time on those views.  Or the data is an npz-like mapping
+{means3d [N, 3], colors [N, 3] in 0..255, viewmats [V, 4, 4], Ks [V, 3, 3],
+width, height}: pass it as `data` (whatever `Config.data` says), or set
+`Config.data="npz"` and name a `.npz` file in `Config.data_dir` (or the
+GSPLAT_TPU_TEST_DATA environment variable); its targets are clean renders
+of the full point cloud and the last view is held out.  `Config.save_ply`
+writes the live gaussians as a 3DGS `.ply` at every save.  The trainer runs
+on the card unless `device="cpu"`.
 
-Not ported yet (ROADMAP Queue 1 item 12): pose / bilateral-grid /
-appearance / PPISP options, the viewer, TensorBoard, trajectories, PLY
-export and compression.
+Not ported yet (ROADMAP Queue 1): pose / bilateral-grid / appearance /
+PPISP options, the viewer, TensorBoard, trajectories and compression.
 """
 
 from __future__ import annotations
@@ -38,12 +46,14 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
-from .losses import l1_loss, ssim_loss
+from .datasets import Dataset, Parser
+from .exporter import export_splats
+from .losses import l1_loss, ssim, ssim_loss
 from .optimizers import AdamState, adam_init, selective_adam_update
 from .rendering import rasterization
 from .scene.convert import train_state_from_numpy, train_state_to_numpy
 from .strategy import DefaultStrategy, MCMCStrategy
-from .training import exponential_lr
+from .training import exponential_lr, load_lpips_weights, lpips, lpips_proxy
 
 SH_C0 = 0.28209479177387814
 
@@ -51,8 +61,9 @@ SH_C0 = 0.28209479177387814
 @dataclasses.dataclass
 class Config:
     strategy: str = "default"  # "default" | "mcmc"
-    data: str = "npz"  # only "npz" is ported
-    data_dir: str = ""  # path of the .npz file when no arrays are passed
+    data: str = "colmap"  # "colmap" | "npz"; arrays passed as `data=` take the npz branch
+    data_dir: str = ""  # the COLMAP scene's directory, or the .npz file
+    factor: int = 4  # COLMAP image downsampling: images_{factor}, intrinsics / factor
     result_dir: str = "results/run"
     max_steps: int = 30_000
     batch_size: int = 1
@@ -91,6 +102,8 @@ class Config:
     mcmc_noise_stop: int = -1  # stop noise injection at this step; -1 = never stop
     fixed_batch: bool = False  # step over the train views in order
     npz_subsample: int = 1  # train from every k-th point against full-cloud targets
+    lpips_weights: str = ""  # LPIPS(VGG) weights .npz for eval (training/metrics.py)
+    save_ply: bool = False  # a .ply of the live gaussians at every save
 
 
 def knn_mean_dist(points: np.ndarray, k: int = 4) -> np.ndarray:
@@ -152,35 +165,53 @@ class Trainer:
                  device: DeviceLike = None):
         if cfg.strategy not in ("default", "mcmc"):
             raise ValueError(f"strategy must be 'default' or 'mcmc', got {cfg.strategy!r}")
-        if cfg.data != "npz":
-            raise NotImplementedError(
-                f"data {cfg.data!r}: only 'npz' is ported (the COLMAP loader is ROADMAP "
-                "Queue 1 item 12)"
-            )
+        if data is None and cfg.data not in ("colmap", "npz"):
+            raise ValueError(f"data must be 'colmap' or 'npz', got {cfg.data!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         os.makedirs(cfg.result_dir, exist_ok=True)
+        self.stats_dir = os.path.join(cfg.result_dir, "stats")
+        os.makedirs(self.stats_dir, exist_ok=True)
 
-        if data is None:
-            path = cfg.data_dir or os.environ.get("GSPLAT_TPU_TEST_DATA", "")
-            if not path:
-                raise ValueError("pass the data arrays, or name the .npz in Config.data_dir")
-            with np.load(path) as d:
-                data = {k: d[k] for k in d.files}
-        self.height, self.width = int(data["height"]), int(data["width"])
-        self.viewmats = np.asarray(data["viewmats"], np.float32)
-        self.Ks = np.asarray(data["Ks"], np.float32)
-        self._full_points = np.asarray(data["means3d"], np.float32)
-        self._full_rgbs = (np.asarray(data["colors"]) / 255.0).astype(np.float32)
-        sub = max(cfg.npz_subsample, 1)
-        points, rgbs = self._full_points[::sub], self._full_rgbs[::sub]
-        # no photographs: train views 0..V-2 against rendered targets, eval view V-1
-        self.train_views = list(range(len(self.viewmats) - 1))
-        self.eval_views = [len(self.viewmats) - 1]
-        centers = np.linalg.inv(self.viewmats)[:, :3, 3]
-        self.scene_scale = float(np.linalg.norm(centers - centers.mean(0), axis=1).max()) * 1.1
+        self.parser = None
+        sub = 1
+        if data is None and cfg.data == "colmap":
+            self.parser = Parser(cfg.data_dir, factor=cfg.factor, normalize=True, test_every=8)
+            self.trainset = Dataset(self.parser, "train")
+            self.scene_scale = self.parser.scene_scale * 1.1
+            points = self.parser.points
+            rgbs = self.parser.points_rgb.astype(np.float32) / 255.0
+            self.width, self.height = self.parser.widths[0], self.parser.heights[0]
+            if set(self.parser.widths) != {self.width} or set(self.parser.heights) != {self.height}:
+                raise ValueError(f"{cfg.data_dir}: the images differ in size; crop or resize "
+                                 "them to one size")
+            idx = self.trainset.indices
+            self.viewmats = np.linalg.inv(self.parser.camtoworlds)[idx].astype(np.float32)
+            self.Ks = self.parser.Ks[idx].astype(np.float32)
+            self.train_views = list(range(len(idx)))
+            self.eval_views = []
+        else:
+            if data is None:
+                path = cfg.data_dir or os.environ.get("GSPLAT_TPU_TEST_DATA", "")
+                if not path:
+                    raise ValueError("pass the data arrays, or name the .npz in Config.data_dir")
+                with np.load(path) as d:
+                    data = {k: d[k] for k in d.files}
+            self.height, self.width = int(data["height"]), int(data["width"])
+            self.viewmats = np.asarray(data["viewmats"], np.float32)
+            self.Ks = np.asarray(data["Ks"], np.float32)
+            self._full_points = np.asarray(data["means3d"], np.float32)
+            self._full_rgbs = (np.asarray(data["colors"]) / 255.0).astype(np.float32)
+            sub = max(cfg.npz_subsample, 1)
+            points, rgbs = self._full_points[::sub], self._full_rgbs[::sub]
+            # no photographs: train views 0..V-2 against rendered targets, eval view V-1
+            self.train_views = list(range(len(self.viewmats) - 1))
+            self.eval_views = [len(self.viewmats) - 1]
+            centers = np.linalg.inv(self.viewmats)[:, :3, 3]
+            self.scene_scale = float(
+                np.linalg.norm(centers - centers.mean(0), axis=1).max()) * 1.1
 
         if cfg.strategy == "mcmc":
             self.strategy = MCMCStrategy(
@@ -197,16 +228,19 @@ class Trainer:
             )
             self.strategy_state = self.strategy.initialize_state(
                 self.capacity, scene_scale=self.scene_scale, device=self.device)
-        # the neighbour search over the full cloud runs once: the initial
-        # scales and the targets share it when nothing is subsampled
-        self._full_dist = knn_mean_dist(self._full_points)
-        self.params, self.alive = create_splats(
-            points, rgbs, self.capacity, cfg, self.device,
-            dist=self._full_dist if sub == 1 else None,
-        )
+        # npz: the neighbour search over the full cloud runs once, the
+        # initial scales and the targets share it when nothing is subsampled
+        dist = None
+        if self.parser is None:
+            self._full_dist = knn_mean_dist(self._full_points)
+            dist = self._full_dist if sub == 1 else None
+        self.params, self.alive = create_splats(points, rgbs, self.capacity, cfg, self.device,
+                                                dist=dist)
         self.opt_state = adam_init(self.params)
         self.strategy.check_sanity(self.params, (self.opt_state.mu, self.opt_state.nu))
         self.start_step = 0
+        self.lpips_w = (load_lpips_weights(cfg.lpips_weights, device=self.device)
+                        if cfg.lpips_weights and os.path.exists(cfg.lpips_weights) else None)
         if cfg.ckpt:
             self._load(cfg.ckpt)
 
@@ -328,20 +362,30 @@ class Trainer:
         return dict(step=step, view=int(view_ids[0]), sh_degree=sh_degree, loss=loss,
                     overflow=overflow, refined=refined, reset=reset, noised=noised)
 
+    def colmap_targets(self) -> torch.Tensor:
+        """The training split's images [V, H, W, 3] in [0, 1], on the device."""
+        return torch.from_numpy(
+            np.stack([self.trainset[i]["image"] for i in range(len(self.trainset))])
+        ).to(self.device)
+
     def train(self, targets: Optional[torch.Tensor] = None):
         """Run steps start_step..max_steps-1.  `targets` are the training
-        images of every view when the caller rendered them already
-        (`_make_npz_targets`)."""
+        images when the caller has them already: of the training split
+        (`colmap_targets`), or of every view (`_make_npz_targets`)."""
         cfg = self.cfg
         C = cfg.batch_size
         dev = self.device
-        targets_all = self._make_npz_targets() if targets is None else targets
-        targets = targets_all[: len(self.train_views)]
-        heldout = (
-            targets_all[len(self.train_views):],
-            torch.from_numpy(self.viewmats[self.eval_views]).to(dev),
-            torch.from_numpy(self.Ks[self.eval_views]).to(dev),
-        )
+        heldout = None
+        if self.parser is not None:
+            targets = self.colmap_targets() if targets is None else targets
+        else:
+            targets_all = self._make_npz_targets() if targets is None else targets
+            targets = targets_all[: len(self.train_views)]
+            heldout = (
+                targets_all[len(self.train_views):],
+                torch.from_numpy(self.viewmats[self.eval_views]).to(dev),
+                torch.from_numpy(self.Ks[self.eval_views]).to(dev),
+            )
         viewmats_all = torch.from_numpy(self.viewmats[self.train_views]).to(dev)
         Ks_all = torch.from_numpy(self.Ks[self.train_views]).to(dev)
         n_train = viewmats_all.shape[0]
@@ -349,6 +393,7 @@ class Trainer:
         rng = np.random.default_rng(cfg.seed)
         overflow_steps = 0
         t0 = time.time()
+        self._train_t0 = t0  # the eval's ellipse_time counts from here
         for step in range(self.start_step, cfg.max_steps):
             if cfg.fixed_batch:
                 idx = (np.arange(C, dtype=np.int64) + step * C) % n_train
@@ -364,8 +409,11 @@ class Trainer:
                 print(f"step {step}: loss {float(out['loss']):.4f} n_gs "
                       f"{int(self.alive.sum())} ({time.time() - t0:.0f}s)", flush=True)
             if (step + 1) % cfg.eval_every == 0 or step == cfg.max_steps - 1:
-                self.eval(step, targets, viewmats_all, Ks_all, tag="train")
-                self.eval(step, *heldout, tag="heldout")
+                if heldout is None:  # COLMAP: the training views, as the JAX trainer
+                    self.eval(step, targets, viewmats_all, Ks_all)
+                else:
+                    self.eval(step, targets, viewmats_all, Ks_all, tag="train")
+                    self.eval(step, *heldout, tag="heldout")
             if (step + 1) % cfg.save_every == 0 or step == cfg.max_steps - 1:
                 self._save(step)
         if overflow_steps:
@@ -410,8 +458,12 @@ class Trainer:
         return torch.cat(outs, dim=0)
 
     @torch.no_grad()
-    def eval(self, step: int, targets, viewmats, Ks, tag: str = "eval") -> float:
-        """PSNR of the current model over the given views."""
+    def eval(self, step: int, targets, viewmats, Ks, tag: str = "eval") -> Tuple[float, float]:
+        """PSNR, SSIM, LPIPS (None without weights) and the LPIPS proxy of
+        the current model over the given views, with the live gaussians,
+        the device memory and the time since training started; written to
+        `stats.jsonl` and `stats/{tag}_step{step:04d}.json`.  Returns
+        (psnr, ssim)."""
         sh_degree = self.sh_degree_at(step)
         chunk = max(self.cfg.batch_size, 1)
         outs = []
@@ -425,11 +477,31 @@ class Trainer:
         colors = torch.clamp(torch.cat(outs, dim=0), 0.0, 1.0)
         mse = torch.mean((colors - targets) ** 2)
         psnr = float(-10.0 * torch.log10(torch.clamp(mse, min=1e-12)))
-        print(f"eval[{tag}] @{step}: PSNR {psnr:.2f}", flush=True)
-        stats = {"step": step, "tag": tag, "psnr": psnr, "n_gs": int(self.alive.sum())}
+        s = float(ssim(colors, targets))
+        # the perceptual metrics one view at a time: their features of every
+        # view at once would take tens of GiB at 4k; the mean is the same
+        views = range(len(colors))
+        lp = None
+        if self.lpips_w is not None:
+            lp = float(torch.cat([lpips(colors[i:i + 1], targets[i:i + 1], self.lpips_w)
+                                  for i in views]).mean())
+        lp_proxy = float(torch.cat([lpips_proxy(colors[i:i + 1], targets[i:i + 1])
+                                    for i in views]).mean())
+        print(f"eval[{tag}] @{step}: PSNR {psnr:.2f} SSIM {s:.4f}"
+              + (f" LPIPS {lp:.4f}" if lp is not None else "")
+              + f" LPIPSproxy {lp_proxy:.4f}", flush=True)
+        stats = {"step": step, "tag": tag, "psnr": psnr, "ssim": s, "lpips": lp,
+                 "lpips_proxy": lp_proxy, "n_gs": int(self.alive.sum()),
+                 # device bytes in use, GiB, as the JAX trainer's _device_mem_gib reads them
+                 "mem": (torch.cuda.memory_allocated(self.device) / 1024**3
+                         if self.device.type == "cuda" else 0.0),
+                 "ellipse_time": (time.time() - self._train_t0
+                                  if hasattr(self, "_train_t0") else None)}
         with open(os.path.join(self.cfg.result_dir, "stats.jsonl"), "a") as f:
             f.write(json.dumps(stats) + "\n")
-        return psnr
+        with open(os.path.join(self.stats_dir, f"{tag}_step{step:04d}.json"), "w") as f:
+            json.dump(stats, f)
+        return psnr, s
 
     # -------------------------------------------------------------- checkpoint
 
@@ -445,6 +517,14 @@ class Trainer:
         flat["pose_deltas"] = np.zeros((len(self.train_views), 9), np.float32)
         np.savez(out, **flat)
         print(f"saved {out}", flush=True)
+        if self.cfg.save_ply:  # the live gaussians, as the JAX trainer exports them
+            ply_dir = os.path.join(self.cfg.result_dir, "ply")
+            os.makedirs(ply_dir, exist_ok=True)
+            path = os.path.join(ply_dir, f"point_cloud_{step}.ply")
+            keep = self.alive
+            export_splats(**{k: self.params[k][keep] for k in (
+                "means", "scales", "quats", "opacities", "sh0", "shN")}, format="ply", save_to=path)
+            print(f"saved {path}", flush=True)
         return out
 
     def _load(self, path: str) -> None:

@@ -222,5 +222,14 @@ def test_sample_inference_example_renders_an_npz_checkpoint(tmp_path):
     for out in outs:
         w, h, img = _read_png(out)
         assert (w, h) == (48, 32) and img.max() > 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sample_inference_torch.main(["--ckpt", str(tmp_path / "scene.ply"), "--device", "cpu"])
+    # the .ply of the same alive rows (the trainers' save_ply) renders the same images
+    from gsplat_tpu_torch.exporter import export_splats
+
+    export_splats(**{k: v[alive] for k, v in p.items()}, format="ply",
+                  save_to=str(tmp_path / "scene.ply"))
+    outs_ply = sample_inference_torch.main([
+        "--ckpt", str(tmp_path / "scene.ply"), "--output-dir", str(tmp_path / "png_ply"),
+        "--n-views", "2", "--width", "48", "--height", "32", "--isect-capacity", "8192",
+        "--device", "cpu"])
+    for a, b in zip(outs, outs_ply):
+        assert np.array_equal(_read_png(a)[2], _read_png(b)[2])

@@ -21,7 +21,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "gsplat_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "simple_trainer_torch.py",
     ROOT / "examples" / "simple_trainer_2dgs_torch.py", ROOT / "examples" / "av_trainer_torch.py",
-    ROOT / "examples" / "sample_inference_torch.py"]
+    ROOT / "examples" / "sample_inference_torch.py", ROOT / "studies" / "k3_expand_rows.py"]
 
 
 def _imports(path):
@@ -543,6 +543,95 @@ def test_surfel_kernels_match_plain_versions_on_the_card(D):
     for row, row_p in zip(v_slot, v_slot_p):
         assert (row - row_p).abs().max().item() <= 1e-4 * row_p.abs().max().item()
     assert (v_slot[:, int(bounds[-1]):] == 0).all()
+
+
+K3_CASES = ["one_row", "dummies", "row_overflow", "culled_suffix", "empty", "ragged_cap"]
+
+
+def k3_case(case, dev):
+    """K3's inputs (gg_f, gg_i, n_rows, row_cap, tile, n_images) where its
+    per-CTA brackets and staging are stressed: 3,000 one-row splats (every
+    CTA's 256 rows come from 256 gaussians), a third of the visible
+    gaussians off screen (dummies, one record each), a row capacity below
+    the rows (row_overflow), a culled suffix, no gaussian at all, and a row
+    capacity that is not a multiple of 256."""
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+
+    ts, I = 16, 2
+    if case == "empty":
+        return (torch.zeros((10, 0), device=dev), torch.zeros((6, 0), dtype=torch.int32,
+                                                              device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), 1000, ts, I)
+    rng = np.random.default_rng(K3_CASES.index(case))
+    tw, th = 40, 30
+    N = 1500
+    if case == "one_row":  # a splat of ~2 px at each tile's centre: one tile row each
+        cells = rng.choice(tw * th, (I, N))
+        m2 = np.stack([cells % tw, cells // tw], -1) * ts + ts / 2.0
+        a = c = np.full((I, N), 2.0)
+        b = np.zeros((I, N))
+        rad = np.full((I, N, 2), 3)
+    else:
+        m2 = rng.uniform(0, 1, (I, N, 2)) * [tw * ts, th * ts]
+        a = rng.uniform(0.005, 0.5, (I, N))
+        c = rng.uniform(0.005, 0.5, (I, N))
+        b = (rng.uniform(size=(I, N)) - 0.5) * np.sqrt(a * c)
+        rad = rng.integers(1, 60, (I, N, 2))
+    if case == "dummies":  # visible, but off screen: no real coverage
+        off = rng.uniform(size=(I, N)) < 1 / 3
+        m2[off] = -500.0
+    if case == "culled_suffix":
+        rad[rng.uniform(size=(I, N)) < 0.4] = 0
+    t = lambda x, dt=torch.float32: torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+    comp = tr.compact_by_depth(t(m2), t(np.stack([a, b, c], -1)), t(np.zeros((I, N, 1))),
+                               t(rng.uniform(0.05, 1.0, (I, N))), t(rad, torch.int32),
+                               t(rng.uniform(0.5, 2.0, (I, N))))
+    geo = tr.row_geometry(comp.means2d, comp.radii, comp.conics, comp.opacities,
+                          comp.image_ids, comp.n_live, I, ts, tw, th, 1 << 20)
+    total = int(geo.n_rows)
+    row_cap = {"row_overflow": total - 3000 - 77, "ragged_cap": total + 1037}.get(
+        case, -(-total // 256) * 256)
+    n_rows = torch.clamp(geo.n_rows, max=row_cap)
+    if case == "culled_suffix":
+        assert int(comp.n_live) < I * N
+    if case == "dummies":
+        assert int((geo.gg_i[tg.GI_IM] == I).sum()) > 500
+    return geo.gg_f, geo.gg_i, n_rows, row_cap, ts, I
+
+
+@pytest.mark.parametrize("case", [c for c in K3_CASES if c != "empty"])
+def test_k3_staging_lemma_on_the_plain_plan(case):
+    """K3 stages at most 256 gaussians a CTA (csrc/expand.cu's header): on
+    the plain plan no 256-row block below n_rows spans more than 256
+    gaussians, and the gaussians of the rows never fall."""
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+
+    gg_f, gg_i, n_rows, row_cap, ts, I = k3_case(case, torch.device("cpu"))
+    x0, ty, im, w, gid = tg.expand_rows_plain(gg_f, gg_i, n_rows, row_cap, ts, I)
+    n = int(n_rows)
+    assert n > 2000 and (row_cap % 256 != 0) == (case in ("row_overflow", "ragged_cap"))
+    live = gid[:n].long()
+    assert (live[1:] >= live[:-1]).all() and (w[:n] >= 1).all() and (w[n:] == 0).all()
+    blocks = torch.nn.functional.pad(live, (0, -n % 256), value=int(live[-1])).view(-1, 256)
+    span = blocks[:, -1] - blocks[:, 0] + 1
+    assert int(span.max()) <= 256
+    if case == "one_row":  # every gaussian one row: the lemma's bound is met
+        assert int(span.max()) == 256
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_brackets_and_staging_on_the_card(case):
+    """K3 bit for bit against its plain version on the scenes of k3_case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import gather_kernel as tg
+
+    args = k3_case(case, torch.device("cuda"))
+    got, want = tg.expand_rows(*args), tg.expand_rows_plain(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu

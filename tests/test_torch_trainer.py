@@ -261,8 +261,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="'default' or 'mcmc'"):
         Trainer(Config(strategy="adc", result_dir=str(tmp_path)), data=_tiny_data(),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(Config(data="colmap", result_dir=str(tmp_path)), data=_tiny_data(), device="cpu")
+    with pytest.raises(ValueError, match="'colmap' or 'npz'"):
+        Trainer(Config(data="blender", result_dir=str(tmp_path)), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(Config(result_dir=str(tmp_path)), data=_tiny_data())
