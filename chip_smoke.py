@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's main paths, serving, 3DGS training, 2DGS
-training, the 3DGUT render and the AV trainer, on one NVIDIA card and hold
-each CUDA kernel against its plain PyTorch version.
+"""Drive the PyTorch port's main paths, serving, the analysis ops, 3DGS
+training, 2DGS training, the 3DGUT render and the AV trainer, on one NVIDIA
+card and hold each CUDA kernel against its plain PyTorch version.
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -40,6 +40,24 @@ Phases:
   5. profile: each stage of a fast and of an exact request timed alone, and
      a torch.profiler trace of 3 fast requests giving device time by kernel
      and the device's busy and idle share;
+  5a. analysis, on the serving scene and request 0's camera at 3840x2160:
+     the classic public pipeline (fully_fused_projection -> isect_tiles,
+     its capacity from a sizing pass -> isect_offset_encode), with
+     n_isects held to the AABB plan's and every tile's span to
+     expand_sort_align's; rasterize_to_pixels_ref (bands of tiles) against
+     rasterize_to_pixels (K3, K4, K1) in the band; the contributing ops
+     (the accumulated alpha against K1's, the ids' weights summing to it,
+     the top 8 a subset of the ids with their weights); sparse
+     rasterization at 65,536 seeded pixels against the oracle there, its
+     backward (K5) equal bit for bit on a rerun and in the gradient band
+     of phase 7 against the CPU; at 1920x1080 rasterize_to_indices_in_range
+     with accumulate (K5) over 256-slot batches against K1 (in the band on
+     the pixels that never stopped; elsewhere within the bounds its resume
+     of a stopped pixel allows); the losses and color_correct_affine on the
+     card against the CPU (1e-5 relative).  Launch counts are set to 0
+     just before and read just after (the span cross-check runs before):
+     K1, K3, K4, K5 and K8 must be > 0.  Each step prints its ms and
+     (pixel, slot) pairs; the phase its seconds and peak memory;
   6. training: the same points and colours, as an in-memory npz-like dict
      with the 4 orbit cameras, go through gsplat_tpu_torch.trainer.Trainer
      at its defaults (packed payload and gradients; MCMC strategy, cap_max =
@@ -187,11 +205,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from gsplat_tpu_torch import _build, rasterization
+from gsplat_tpu_torch import _build, color_correct_affine, rasterization
+from gsplat_tpu_torch import losses as losses_mod
 from gsplat_tpu_torch import av_trainer as av_mod
 from gsplat_tpu_torch import trainer as trainer_mod
 from gsplat_tpu_torch import trainer_2dgs as trainer2d_mod
 from gsplat_tpu_torch.ops import bf16pair
+from gsplat_tpu_torch.ops import contributing as contrib
 from gsplat_tpu_torch.ops import gather_kernel as gk
 from gsplat_tpu_torch.ops import rasterize as rz
 from gsplat_tpu_torch.ops import rasterize2d as r2d
@@ -199,8 +219,11 @@ from gsplat_tpu_torch.ops import rasterize2d_kernel as r2k
 from gsplat_tpu_torch.ops import rasterize_eval3d as r3d
 from gsplat_tpu_torch.ops import rasterize_eval3d_kernel as r3k
 from gsplat_tpu_torch.ops import rasterize_kernel as rk
+from gsplat_tpu_torch.ops import rasterize_ref as rref
+from gsplat_tpu_torch.ops import rasterize_sparse as sparse_mod
 from gsplat_tpu_torch.ops import segsum_kernel as sk
 from gsplat_tpu_torch.strategy import ops as strategy_ops
+from gsplat_tpu_torch.ops.isect import isect_offset_encode, isect_tiles
 from gsplat_tpu_torch.ops.projection import fully_fused_projection
 from gsplat_tpu_torch.ops.sh import spherical_harmonics
 from gsplat_tpu_torch.rendering import _campos_from_viewmats
@@ -2404,6 +2427,311 @@ def colmap_phase(dev, raw, n_cell: int, grid: int, wh, log):
     return launches
 
 
+ANALYSIS_KERNELS = ("expand_rows", "expand_emission", "rasterize_fwd", "segment_rowsum",
+                    "expand_emission_aabb")
+INDICES_WH = (1920, 1080)  # the index lists of one 256-slot batch: 530,841,600 entries
+SPARSE_PIXELS = 65_536
+TOP_K = 8
+
+
+def timed(dev, fn):
+    """(fn(), ms on the host clock, waiting for the card)."""
+    sync(dev)
+    t = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def dense_pairs(offsets, n_isects, r0: int, r1: int) -> int:
+    """(pixel, slot) pairs the banded walk of rasterize_ref evaluates over
+    slots [r0, r1) of each tile's span."""
+    bounds = rref._span_bounds(offsets, n_isects)
+    return sum((u1 - u0) * TILE * TILE * L for u0, u1, L in
+               rref._band_plan(rref._span_counts(bounds, r0, r1), TILE * TILE))
+
+
+def sparse_pairs(offsets, n_isects, pix, max_range: int) -> int:
+    """(pixel, slot) pairs the sparse forward evaluates at pixels `pix` of
+    image 0."""
+    bounds = rref._span_bounds(offsets, n_isects)
+    tw = offsets.shape[-1]
+    spans = (pix[:, 0].long() // TILE * tw + pix[:, 1].long() // TILE).to(bounds.device)
+    counts = rref._span_counts(bounds, 0, max_range)[spans]
+    return sum((u1 - u0) * L for u0, u1, L in rref._band_plan(counts, 1))
+
+
+def grad_band(a: torch.Tensor, b: torch.Tensor, name: str, strict=3e-4, frac=0.01, hard=5e-2):
+    """The gradient reference's band (phase 7): relative to b's largest
+    entry g, under `frac` of the entries off by more than strict g, none by
+    more than hard g."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    g = float(b.abs().max())
+    require(g > 0 and bool(torch.isfinite(a).all()), f"{name}: degenerate gradient")
+    diff = (a - b).abs()
+    bad, worst = float((diff > strict * g).double().mean()), float(diff.max()) / g
+    require(bad < frac and worst < hard, f"{name}: {bad:.4f} over {strict} g, max {worst:.3g} g")
+    return worst
+
+
+def rel_close(a: torch.Tensor, b: torch.Tensor, name: str, tol: float = 1e-5) -> float:
+    """max |a - b| within tol of b's largest entry."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    scale = max(float(b.abs().max()), 1e-30)
+    err = float((a - b).abs().max()) / scale
+    require(bool(torch.isfinite(a).all()) and err <= tol, f"{name}: {err:.3g} of its scale")
+    return err
+
+
+def analysis_phase(dev, scene, vm, K, wh, cap: int, log):
+    """The classic public pipeline and the analysis ops on request 0's
+    camera (README: fully_fused_projection -> isect_tiles ->
+    isect_offset_encode -> rasterize_to_pixels_ref), at 3840x2160, the
+    index lists with accumulate at INDICES_WH, then the losses and colour
+    correction on the card against the CPU.  Returns the launch counts
+    (set to 0 just before, read just after; K1, K3, K4, K5 and K8 must be
+    > 0; the cross-check of the spans runs before the reset)."""
+    on_card = dev.type == "cuda"
+    W, H = wh
+    tw, th = -(-W // TILE), -(-H // TILE)
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    inp = rasterizer_inputs(scene, vm, K, W, H)
+    m2, cn, cl, op = inp["means2d"], inp["conics"], inp["colors"], inp["opacities"]
+    radii, depths = inp["radii"], inp["depths"]
+    E = m2.shape[1]
+    # the AABB plan of the 2DGS path on the same inputs, for the spans
+    plan = rz.make_emission_plan(m2, radii, TILE, tw, th, 1 << 30)
+    n_slots = int(plan.cum_in[-1])
+    plan = rz.make_emission_plan(m2, radii, TILE, tw, th, n_slots)
+    _, aabb_bounds, _, _ = rz.expand_sort_align(m2.new_zeros((E, 4)), depths.reshape(-1), plan,
+                                                n_slots, tw, th, 1)
+    stats = {}
+    reset_launches()
+
+    # 1. intersection: a sizing pass (capacity 0 emits nothing), then the list
+    sizing = isect_tiles(m2, radii, depths, TILE, tw, th, capacity=0)
+    n_isects = int(sizing.n_isects)
+    (isect, offsets), ms = timed(dev, lambda: (lambda i: (i, isect_offset_encode(
+        i.tile_keys, 1, tw, th)))(isect_tiles(m2, radii, depths, TILE, tw, th,
+                                              capacity=n_isects)))
+    require(not bool(isect.overflow) and int(isect.n_isects) == n_isects, "isect_tiles overflow")
+    require(n_isects == int(plan.n_isects), f"n_isects {n_isects} != the AABB plan's "
+            f"{int(plan.n_isects)}")
+    bounds = rref._span_bounds(offsets, isect.n_isects)
+    spans = bounds[1:] - bounds[:-1]
+    require(torch.equal(spans, (aabb_bounds[1:] - aabb_bounds[:-1]).long()),
+            "isect_tiles spans differ from expand_sort_align's")
+    max_range = int(spans.max())
+    stats["isect"] = dict(n_isects=n_isects, max_span=max_range, ms=ms,
+                          k8_launches=gk.expand_emission_aabb.launches)
+    log("analysis isect " + json.dumps(stats["isect"]))
+    del plan, aabb_bounds, sizing
+    ref_args = (TILE, offsets, isect.flatten_ids, isect.n_isects, max_range)
+    pairs = dense_pairs(offsets, isect.n_isects, 0, max_range)
+
+    # 2. the oracle against K1 (rasterize_to_pixels: K3, K4, K1)
+    (ref_c, ref_a), ms = timed(dev, lambda: rref.rasterize_to_pixels_ref(
+        m2, cn, cl, op, W, H, *ref_args))
+    stats["oracle"] = dict(ms=ms, pairs=pairs)
+    rgbd = torch.cat([cl, depths[..., None]], dim=-1)  # depth rides as a 4th channel
+    (k1_c, k1_a, aux), ms = timed(dev, lambda: rz.rasterize_to_pixels(
+        m2, cn, rgbd, op, W, H, radii, depths, cap, tile_size=TILE))
+    require(not bool(aux["isect_overflow"]), "rasterize_to_pixels overflow")
+    stats["oracle"]["k1_ms"] = ms
+    stats["oracle"]["err_colors"] = band_close(ref_c, k1_c[..., :3], "oracle colors against K1")
+    stats["oracle"]["err_alphas"] = band_close(ref_a, k1_a, "oracle alphas against K1")
+    log("analysis oracle " + json.dumps(stats["oracle"]))
+
+    # 3. the contributing ops
+    geo = (m2, cn, op, offsets, isect.flatten_ids, W, H, TILE, isect.n_isects, max_range)
+    (counts, acc), ms = timed(dev, lambda: contrib.rasterize_num_contributing_gaussians(*geo))
+    band_close(acc[..., None], k1_a, "accumulated alphas against K1")
+    K_max = int(counts.max())
+    stats["num_contributing"] = dict(ms=ms, max_count=K_max,
+                                     mean_count=float(counts.float().mean()))
+    (ids, w), ms = timed(dev, lambda: contrib.rasterize_contributing_gaussian_ids(*geo, K_max))
+    require(torch.equal((ids >= 0).sum(-1).to(torch.int32), counts), "ids: counts differ")
+    band_close(w.sum(-1), acc, "contributing weights against the accumulated alphas")
+    stats["contributing_ids"] = dict(ms=ms, gib=(ids.numel() * 8) / 2**30)
+    (top_ids, top_w), ms = timed(
+        dev, lambda: contrib.rasterize_top_contributing_gaussian_ids(*geo, TOP_K))
+    for r0 in range(0, H, 64):  # each selected id is one of the pixel's, with its weight
+        hit = (top_ids[:, r0:r0 + 64, :, :, None] == ids[:, r0:r0 + 64, :, None, :])
+        same_w = (hit & (top_w[:, r0:r0 + 64, :, :, None] == w[:, r0:r0 + 64, :, None, :]))
+        require(bool((same_w.any(-1) | (top_ids[:, r0:r0 + 64] < 0)).all()),
+                "top contributors are not a subset of the contributing ids with their weights")
+    require(torch.equal((top_ids >= 0).sum(-1), torch.clamp(counts, max=TOP_K).to(torch.int64)),
+            "top contributors: counts differ")
+    stats["top_contributing"] = dict(ms=ms, k=TOP_K)
+    log("analysis contributing " + json.dumps({k: stats[k] for k in (
+        "num_contributing", "contributing_ids", "top_contributing")}))
+    del ids, w, top_ids, top_w, counts, acc
+
+    # 4. sparse rasterization at seeded pixels, its backward twice, and on the CPU
+    g = torch.Generator().manual_seed(SEED)
+    pix = torch.stack([torch.randint(0, H, (SPARSE_PIXELS,), generator=g),
+                       torch.randint(0, W, (SPARSE_PIXELS,), generator=g)], -1).to(torch.int32)
+    img_ids = torch.zeros(SPARSE_PIXELS, dtype=torch.int32)
+
+    def sparse(d):
+        leaves = [x.detach().to(d).requires_grad_() for x in (m2, cn, cl, op)]
+        c, a = sparse_mod.rasterize_to_pixels_sparse(
+            *leaves, pix.to(d), img_ids.to(d), W, H, TILE, offsets.to(d),
+            isect.flatten_ids.to(d), isect.n_isects.to(d), max_range)
+        ((c * c).sum() + (a * a).sum()).backward()
+        return c.detach(), a.detach(), [x.grad for x in leaves]
+
+    (sp_c, sp_a, sp_g), ms = timed(dev, lambda: sparse(dev))
+    py, px = pix[:, 0].long().to(dev), pix[:, 1].long().to(dev)
+    band_close(sp_c, ref_c[0, py, px], "sparse colors against the oracle")
+    band_close(sp_a, ref_a[0, py, px], "sparse alphas against the oracle")
+    del ref_c, ref_a
+    _, _, again = sparse(dev)
+    require(all(torch.equal(x, y) for x, y in zip(sp_g, again)),
+            "sparse gradients differ from run to run")
+    del again
+    (cpu_c, cpu_a, cpu_g), cpu_ms = timed(torch.device("cpu"), lambda: sparse(torch.device("cpu")))
+    band_close(sp_c.cpu(), cpu_c, "sparse colors on the CPU")
+    worst = {n: grad_band(x, y, f"sparse gradient of {n} against the CPU")
+             for n, x, y in zip(("means2d", "conics", "colors", "opacities"), sp_g, cpu_g)}
+    stats["sparse"] = dict(ms=ms, cpu_ms=cpu_ms, pixels=SPARSE_PIXELS,
+                           pairs=sparse_pairs(offsets, isect.n_isects, pix, max_range),
+                           grad_vs_cpu=worst)
+    log("analysis sparse " + json.dumps(stats["sparse"]))
+    del sp_g, cpu_g, cpu_c, cpu_a
+
+    # 5. the index lists and accumulate, batch by batch, at INDICES_WH
+    Wi, Hi = INDICES_WH
+    inp_i = rasterizer_inputs(scene, vm, scaled_K(K, Wi / W), Wi, Hi)
+    twi, thi = -(-Wi // TILE), -(-Hi // TILE)
+    n_i = int(isect_tiles(inp_i["means2d"], inp_i["radii"], inp_i["depths"], TILE, twi, thi,
+                          capacity=0).n_isects)
+    isect_i = isect_tiles(inp_i["means2d"], inp_i["radii"], inp_i["depths"], TILE, twi, thi,
+                          capacity=n_i)
+    off_i = isect_offset_encode(isect_i.tile_keys, 1, twi, thi)
+    b_i = rref._span_bounds(off_i, isect_i.n_isects)
+    n_batches = -(-int((b_i[1:] - b_i[:-1]).max()) // (TILE * TILE))
+    k1_i, k1_ia, aux = rz.rasterize_to_pixels(inp_i["means2d"], inp_i["conics"], inp_i["colors"],
+                                              inp_i["opacities"], Wi, Hi, inp_i["radii"],
+                                              inp_i["depths"], 4 * n_i + 4096, tile_size=TILE)
+    require(not bool(aux["isect_overflow"]), f"rasterize_to_pixels overflow at {Wi}x{Hi}")
+    render = torch.zeros_like(k1_i)
+    alphas = torch.zeros_like(k1_ia)
+    geo_i = (inp_i["means2d"], inp_i["conics"], inp_i["opacities"])
+    t0, entries, valid = time.perf_counter(), 0, 0
+    for b in range(n_batches):
+        trans = 1.0 - alphas[..., 0]
+        lists = contrib.rasterize_to_indices_in_range(b, b + 1, trans, *geo_i, Wi, Hi, TILE,
+                                                      off_i, isect_i.flatten_ids,
+                                                      isect_i.n_isects)
+        entries, valid = lists[0].numel(), valid + int(lists[3].sum())
+        r_b, a_b = contrib.accumulate(*geo_i, inp_i["colors"], *lists, Wi, Hi)
+        del lists
+        render = render + r_b * trans[..., None]
+        alphas = alphas + a_b * trans[..., None]
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    # Each batch resumes a pixel that stopped in an earlier one (its
+    # transmittance T > 1e-4 is all the next batch sees), as the JAX
+    # function and upstream gsplat's do; K1 stops it for good.  A pixel
+    # stops only once T <= 1e-4 / (1 - MAX_ALPHA) = 1e-2, so one whose final
+    # T in K1 exceeds that never stopped: there the two agree in the band.
+    # Elsewhere they part only after T fell to 1e-2: the batches add at
+    # most K1's final T of alpha, and where the carried T = 1 - alpha
+    # (float32) puts a stop on the other side of 1e-4 than K1's serial
+    # product, lose at most 1e-2 (a flipped stop, rare); colours move at
+    # most 1e-2 times the largest colour.
+    t_k1 = 1.0 - k1_ia
+    never = (t_k1 > 1.01e-2)[..., 0]
+    err_c = band_close(render[never], k1_i[never], "indices + accumulate colors (never stopped)")
+    err_a = band_close(alphas[never], k1_ia[never], "indices + accumulate alphas (never stopped)")
+    stopped = ~never
+    extra = (alphas - k1_ia)[stopped][:, 0]
+    moved = (render - k1_i).abs().amax(-1)[stopped]
+    flipped = float((extra < -3e-5).double().mean())
+    cmax = float(inp_i["colors"].max())
+    log("analysis indices stopped pixels " + json.dumps({
+        "stopped": int(stopped.sum()), "flipped_share": flipped, "min_extra": float(extra.min()),
+        "max_extra_minus_t": float((extra - t_k1[stopped][:, 0]).max()),
+        "max_colour_move": float(moved.max())}))
+    require(bool((extra <= t_k1[stopped][:, 0] + 3e-5).all()) and float(extra.min()) >= -1.01e-2,
+            "indices + accumulate: a stopped pixel's alpha left its bounds")
+    require(float(moved.max()) <= 1.01e-2 * cmax + 3e-5,
+            "indices + accumulate: a stopped pixel's colour left its bound")
+    require(flipped < 1e-3, f"indices + accumulate: {flipped} of stopped pixels flipped")
+    stats["indices"] = dict(wh=[Wi, Hi], n_isects=n_i, batches=n_batches,
+                            entries_per_batch=entries, valid=valid, ms=ms,
+                            never_stopped_share=float(never.float().mean()),
+                            err_colors=err_c, err_alphas=err_a, flipped_share=flipped,
+                            max_resumed_alpha=float(extra.max()))
+    log("analysis indices " + json.dumps(stats["indices"]))
+    del render, alphas, k1_i, k1_ia, inp_i, isect_i
+
+    # 6. losses and colour correction: the card against the CPU
+    gen = torch.Generator().manual_seed(SEED + 1)
+    # the depth behind the gaussians: 100 (the far plane) where nothing covers a pixel,
+    # so that every disparity is finite
+    pred_rgb, pred_d = k1_c[..., :3].detach(), (k1_c[..., 3:4] + (1.0 - k1_a) * 100.0).detach()
+    gt_rgb = torch.clamp(pred_rgb.cpu() + 0.05 * torch.randn(pred_rgb.shape, generator=gen),
+                         0.0, 1.0)
+    gt_d = pred_d.cpu() * torch.empty(pred_d.shape).uniform_(0.5, 1.5, generator=gen)
+    mask = (k1_a > 0.5).float()
+    sc = scene.get("scales").float()  # activated, as the inference scene keeps them
+    n_gs = sc.shape[0]
+    dims = torch.full((n_gs, 3), 3.0)
+    vis = (radii[0] > 0).all(-1).float()
+    loss_in = dict(pred_rgb=pred_rgb, pred_d=pred_d, gt_rgb=gt_rgb, gt_d=gt_d, mask=mask,
+                   scales=sc, dens=scene.get("opacities").float(),
+                   means=scene.get("means").float(), dims=dims, vis=vis)
+
+    def losses_on(d):
+        x = {k: v.detach().to(d) for k, v in loss_in.items()}
+        for k in ("pred_rgb", "pred_d", "scales", "dens", "means"):
+            x[k].requires_grad_()
+        z = x["scales"][:, 2]
+        vals = {
+            "fused_gaussian_losses": sum(t.sum() for t in losses_mod.fused_gaussian_losses(
+                x["scales"], x["dens"], z, x["means"], x["dims"], 0.01, x["vis"])),
+            "gaussian_scale_reg": losses_mod.gaussian_scale_reg(x["scales"], x["vis"]),
+            "masked_ssim": losses_mod.masked_ssim(x["pred_rgb"], x["gt_rgb"], x["mask"]),
+            "depth_l1_loss": losses_mod.depth_l1_loss(x["pred_d"], x["gt_d"]),
+            "pearson_depth_loss": losses_mod.pearson_depth_loss(x["pred_d"], x["gt_d"]),
+            "total_variation_loss": losses_mod.total_variation_loss(x["pred_rgb"]),
+            "color_correct_affine": (color_correct_affine(x["pred_rgb"], x["gt_rgb"]) ** 2).mean(),
+        }
+        out = {}
+        for name, v in vals.items():
+            leaves = [x[k] for k in ("pred_rgb", "pred_d", "scales", "dens", "means")]
+            grads = torch.autograd.grad(v, leaves, allow_unused=True, retain_graph=True)
+            out[name] = (float(v.detach()), [gr.cpu() for gr in grads if gr is not None])
+        return out
+
+    got, ms = timed(dev, lambda: losses_on(dev))
+    want, cpu_ms = timed(torch.device("cpu"), lambda: losses_on(torch.device("cpu")))
+    worst = {}
+    for name, (v, grads) in got.items():
+        v_cpu, g_cpu = want[name]
+        require(math.isfinite(v) and abs(v - v_cpu) <= 1e-5 * max(abs(v_cpu), 1e-12),
+                f"{name}: {v} on the card, {v_cpu} on the CPU")
+        require(len(grads) == len(g_cpu) > 0, f"{name}: no gradient")
+        worst[name] = max([abs(v - v_cpu) / max(abs(v_cpu), 1e-12)]
+                          + [rel_close(a, b, f"{name} gradient") for a, b in zip(grads, g_cpu)])
+    stats["losses"] = dict(ms=ms, cpu_ms=cpu_ms, worst_rel=worst)
+    log("analysis losses " + json.dumps(stats["losses"]))
+    launches = read_launches()
+    stats["seconds"] = time.perf_counter() - t_phase
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    log("analysis " + json.dumps({"seconds": stats["seconds"], "peak_gib": stats["peak_gib"],
+                                  "pairs_4k": pairs}))
+    log("analysis launches " + json.dumps(launches))
+    for name in ANALYSIS_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the analysis path")
+    return launches
+
+
 def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, log=print,
         train_steps: int = TRAIN_STEPS):
     """All phases on `dev`; returns the serving records, the training
@@ -2566,7 +2894,14 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     if dev.type == "cuda":
         device_profile(lambda: sv.request(viewmats[0]), times["fast: whole request"], log,
                        "request")
-    del sv, scene, stages
+    del stages
+
+    # The analysis surface on the serving scene: the classic pipeline, the
+    # oracle, the contributing ops, sparse rasterization, the index lists.
+    analysis_launches = analysis_phase(dev, scene, viewmats[0], K, (W, H), cap, log)
+    del sv, scene
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
     # Training: the same points and colours through the trainer.
     history, train_launches, train_records = training_phases(
@@ -2619,7 +2954,7 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     # each kernel's launches on every path, and on its own path as `launches`
     paths = {"serving": launches, "serving_exact": exact_launches, "training": train_launches,
              "2dgs": surfel_launches, "3dgut": gut_launches, "av": av_launches,
-             "colmap": colmap_launches}
+             "colmap": colmap_launches, "analysis": analysis_launches}
     for rec in records:
         rec["launches_by_path"] = {p: counts[rec["name"]] for p, counts in paths.items()}
         rec["launches"] = rec["launches_by_path"][MAIN_PATH[rec["name"]]]

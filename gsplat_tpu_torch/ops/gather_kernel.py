@@ -339,7 +339,8 @@ def expand_emission_aabb(
         _build.stream_of(keys),
     )
     _build.check(lib, code, "expand_emission_aabb")
-    expand_emission_aabb.launches += 1
+    if cap > 0:  # a capacity of 0 (a sizing pass) launches nothing
+        expand_emission_aabb.launches += 1
     return keys, depth_s, flat, fields
 
 

@@ -1,8 +1,8 @@
 """Core Gaussian math: quaternions and covariance construction.
 
 Port of `gsplat_tpu/ops/math.py` (normalize :19, quat_to_rotmat :32,
-rotmat_to_quat :53, quat_scale_to_covar_preci :90, quat_inverse :178,
-quat_rotate :183, quat_slerp :191).  Quaternions are wxyz and need not be
+rotmat_to_quat :53, quat_scale_to_covar_preci :90, quat_multiply :163,
+quat_inverse :178, quat_rotate :183, quat_slerp :191, world_to_cam :212).  Quaternions are wxyz and need not be
 normalized.  The 3x3 algebra is written elementwise, so no matrix product
 (and no TF32) touches it on the card.
 """
@@ -130,6 +130,21 @@ def rotmat_to_quat(rotmats: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of wxyz quaternions."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
 def quat_inverse(q: torch.Tensor) -> torch.Tensor:
     """Inverse of a unit wxyz quaternion: its conjugate."""
     return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
@@ -163,3 +178,25 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor) -> torch.Ten
     w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / sin_theta)
     w1 = torch.where(near, t, torch.sin(t * theta) / sin_theta)
     return normalize(w0 * q0 + w1 * q1, dim=-1, eps=1e-12)
+
+
+def world_to_cam(
+    means: torch.Tensor,  # [..., N, 3]
+    covars: torch.Tensor,  # [..., N, 3, 3]
+    viewmats: torch.Tensor,  # [..., C, 4, 4]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Means and covariances in each camera's frame: means_c [..., C, N, 3]
+    = R m + t, covars_c [..., C, N, 3, 3] = R S R^T, elementwise in float32."""
+    R = viewmats[..., :3, :3][..., :, None, :, :]  # [..., C, 1, 3, 3]
+    t = viewmats[..., :3, 3][..., :, None, :]  # [..., C, 1, 3]
+    m = means[..., None, :, :]  # [..., 1, N, 3]
+    means_c = torch.stack(
+        [R[..., i, 0] * m[..., 0] + R[..., i, 1] * m[..., 1] + R[..., i, 2] * m[..., 2]
+         for i in range(3)], dim=-1) + t
+    S = covars[..., None, :, :, :]  # [..., 1, N, 3, 3]
+    RS = [[R[..., i, 0] * S[..., 0, j] + R[..., i, 1] * S[..., 1, j] + R[..., i, 2] * S[..., 2, j]
+           for j in range(3)] for i in range(3)]
+    covars_c = torch.stack(
+        [torch.stack([RS[i][0] * R[..., l, 0] + RS[i][1] * R[..., l, 1] + RS[i][2] * R[..., l, 2]
+                      for l in range(3)], dim=-1) for i in range(3)], dim=-2)
+    return means_c, covars_c

@@ -1,8 +1,8 @@
 """Fused EWA projection of 3D Gaussians to 2D screen-space conics.
 
 Port of `gsplat_tpu/ops/projection.py` (constants :29-33,
-fully_fused_projection :171-269) with the pinhole, ortho and fisheye
-cameras.  Everything is elementwise f32 (no matrix products, so TF32 never
+fully_fused_projection :171-269, proj :272) with the pinhole, ortho and
+fisheye cameras.  Everything is elementwise f32 (no matrix products, so TF32 never
 applies).  Conics are the upper triangle (a, b, c) of the inverse blurred
 2D covariance; sigma(p) = 0.5*(a*dx^2 + c*dy^2) + b*dx*dy.  Radii are
 int32 [..., C, N, 2]; 0 marks a culled Gaussian.
@@ -221,3 +221,28 @@ def fully_fused_projection(
         valid[..., None], torch.stack([radius_x, radius_y], dim=-1), 0.0
     ).to(torch.int32)
     return radii, means2d, tz, conics, compensations
+
+
+def proj(
+    means: torch.Tensor,  # [..., C, N, 3] camera-frame means
+    covars: torch.Tensor,  # [..., C, N, 3, 3] camera-frame covariances
+    Ks: torch.Tensor,  # [..., C, 3, 3]
+    width: int,
+    height: int,
+    camera_model: str = "pinhole",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The camera projection alone: (means2d [..., C, N, 2], covars2d
+    [..., C, N, 2, 2]), through the same camera functions as
+    fully_fused_projection (a pinhole mean within 1e-6 of the camera plane
+    projects with depth 1 there, as in that function)."""
+    if camera_model not in _CAMERAS:
+        raise ValueError(f"unsupported camera_model: {camera_model!r}")
+    tx, ty, tz = means.unbind(-1)
+    S = (covars[..., 0, 0], covars[..., 0, 1], covars[..., 0, 2],
+         covars[..., 1, 1], covars[..., 1, 2], covars[..., 2, 2])
+    (m2x, m2y), (c00, c01, c11) = _CAMERAS[camera_model](tx, ty, tz, S, Ks, width, height)
+    means2d = torch.stack([m2x, m2y], dim=-1)
+    covars2d = torch.stack(
+        [torch.stack([c00, c01], dim=-1), torch.stack([c01, c11], dim=-1)], dim=-2
+    )
+    return means2d, covars2d

@@ -77,15 +77,14 @@ def _serial_cumprod(x: torch.Tensor) -> torch.Tensor:
     """Inclusive product along the last axis, one float32 factor at a time,
     front to back: the kernel's T *= 1 - alpha.  torch.cumprod rounds in
     another order (a parallel scan on the card, double on the CPU), and the
-    stop rule at T <= 1e-4 turns one ulp of T into a whole gaussian's weight."""
+    stop rule at T <= 1e-4 turns one ulp of T into a whole gaussian's weight.
+    Built functionally, so that autograd through it (the oracles') stays
+    linear in the slots."""
     xs = x.movedim(-1, 0).contiguous()
-    out = torch.empty_like(xs)
-    acc = xs[0]
-    out[0] = acc
+    out: List[torch.Tensor] = [xs[0]]
     for j in range(1, xs.shape[0]):
-        acc = acc * xs[j]
-        out[j] = acc
-    return out.movedim(0, -1)
+        out.append(out[-1] * xs[j])
+    return torch.stack(out, dim=0).movedim(0, -1)
 
 
 def tile_sets(bounds: torch.Tensor, n_tiles: int, n_pix: int, tiles: Optional[torch.Tensor] = None,
