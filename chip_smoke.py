@@ -177,6 +177,35 @@ Phases:
      finite; the .ply of the live gaussians (its bytes printed) goes back
      through load_checkpoint and render_scene and must give, bit for bit,
      the image of the trainer's own live parameters.
+ 17. COLMAP training with every add-on, on phase 16's written scene:
+     Trainer(Config(data="colmap", factor=1, max_steps=6, pose_opt=True,
+     pose_noise=1e-3, app_opt=True, bilateral_grid=True, ppisp=True,
+     tb_every=1, tb_save_image=True, render_traj=True,
+     render_traj_path="interp", traj_frames=8, compression="png",
+     save_ply=True)) with the packed defaults and the default strategy
+     (the pose chain at zero deltas gives the parser's cameras back).
+     Launch counts set to 0 just before train() and read just after (K3, K4
+     packed, K1 packed, K2 packed, K5 > 0; the eval, the trajectory and the
+     k-means launch there too).  Per step: the loss finite, the gradients
+     of the splats, the pose deltas (the step's view's row among the
+     training views'), the grids, the appearance head and PPISP finite and
+     not all zero; each add-on moved after the 6 steps.  The checkpoint
+     loads into a fresh Trainer bit for bit (parameters, moments, add-ons
+     and their moments).  On view 0's 4k render the card's slice, PPISP and
+     appearance head against the CPU's (1e-5 of the largest entry, forward
+     and the gradient of a seeded cotangent; each timed forward and
+     backward).  The compression: every plane, the decompression to the
+     334^2 crop within half an 8-bit step (means: half a 16-bit step in log
+     space) of the cropped, sorted splats; the k-means labels of the card
+     against the CPU's (phase 16's trained shN rows: this phase's are zero
+     under the appearance head; one assignment to the card's centres on
+     both, the share of equal labels printed), one PLAS sort timed, the
+     decompressed splats' render of view 0 against the live splats' (PSNR),
+     the bytes against the .ply's.  The trajectory's frames (interp: 8 // 6
+     a segment, 6 frames) decode, not constant; TensorBoard's event file,
+     or where it is not installed the trainer's note.  Last, 3 more steps
+     timed with TensorBoard closed, and 3 traced (device time by kernel,
+     idle share).
 It prints one `kernels` JSON line (14 kernels, each with its launches on
 every path and `launches` on its own: MAIN_PATH; K1's records also carry
 `exp_bound_ms`, one exp per evaluated pair on the special-function units;
@@ -188,8 +217,10 @@ to the CPU.
 
 from __future__ import annotations
 
+import builtins
 import collections
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -227,7 +258,7 @@ from gsplat_tpu_torch.ops.isect import isect_offset_encode, isect_tiles
 from gsplat_tpu_torch.ops.projection import fully_fused_projection
 from gsplat_tpu_torch.ops.sh import spherical_harmonics
 from gsplat_tpu_torch.rendering import _campos_from_viewmats
-from gsplat_tpu_torch.datasets import Parser, encode_png, write_model_binary
+from gsplat_tpu_torch.datasets import Parser, decode_png, encode_png, write_model_binary
 from gsplat_tpu_torch.scene import (
     GaussianInferenceScene,
     Stage,
@@ -2316,19 +2347,13 @@ def fast_class(a: torch.Tensor, b: torch.Tensor, what: str, log) -> None:
     require(mean < 5e-3 and q999 < 0.05, f"{what}: mean {mean}, 99.9% {q999}")
 
 
-def colmap_phase(dev, raw, n_cell: int, grid: int, wh, log):
-    """Phase 16: train from a COLMAP scene written here.  The grid scene
-    renders COLMAP_VIEWS look-at views exactly on the card (the targets,
-    written as PNGs with zlib); a binary model holds one PINHOLE camera, the
-    views and the centre cell's n_cell points with their colours.  Then
-    Trainer(Config(data="colmap", save_ply=True)) at its defaults (the
-    default strategy, packed payload and gradients) takes COLMAP_STEPS steps
-    on the training split (every 8th view left out), evaluates the training
-    views and writes the live gaussians as a .ply, which load_checkpoint
-    reads back and render_scene serves: bit for bit the image of the
-    trainer's own live parameters.  Returns the launch counts of train()."""
+def write_colmap_scene(dev, raw, n_cell: int, grid: int, wh, tmp: str, log):
+    """The COLMAP phases' scene in `tmp`: the grid scene's COLMAP_VIEWS
+    look-at views rendered exactly on the card as PNGs (zlib) in images/,
+    and a binary model in sparse/0 with one PINHOLE camera, the views and
+    the centre cell's n_cell points with their colours.  Returns (the image
+    names, the points)."""
     W, H = wh
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_colmap_")
     t0 = time.perf_counter()
     sv = Serving(dev, n_cell, grid, wh, raw=raw, n_views=COLMAP_VIEWS)
     sv.size_capacities()
@@ -2352,6 +2377,25 @@ def colmap_phase(dev, raw, n_cell: int, grid: int, wh, log):
     png_bytes = sum(os.path.getsize(os.path.join(tmp, "images", n)) for n in names)
     log(f"colmap scene: {COLMAP_VIEWS} views at {W}x{H} rendered and written ({png_bytes} PNG "
         f"bytes), {len(pts)} points, in {time.perf_counter() - t0:.1f} s")
+    return names, pts
+
+
+def colmap_phase(dev, raw, n_cell: int, grid: int, wh, log):
+    """Phase 16: train from a COLMAP scene written here.  The grid scene
+    renders COLMAP_VIEWS look-at views exactly on the card (the targets,
+    written as PNGs with zlib); a binary model holds one PINHOLE camera, the
+    views and the centre cell's n_cell points with their colours.  Then
+    Trainer(Config(data="colmap", save_ply=True)) at its defaults (the
+    default strategy, packed payload and gradients) takes COLMAP_STEPS steps
+    on the training split (every 8th view left out), evaluates the training
+    views and writes the live gaussians as a .ply, which load_checkpoint
+    reads back and render_scene serves: bit for bit the image of the
+    trainer's own live parameters.  Then phase 17 (addons_phase) on the same
+    scene, before it is removed.  Returns the launch counts of the two
+    train() calls."""
+    W, H = wh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_colmap_")
+    names, pts = write_colmap_scene(dev, raw, n_cell, grid, wh, tmp, log)
     t0 = time.perf_counter()
     parser = Parser(tmp, factor=1, normalize=True, test_every=8)
     parse_s = time.perf_counter() - t0
@@ -2423,7 +2467,363 @@ def colmap_phase(dev, raw, n_cell: int, grid: int, wh, log):
             "the .ply's render differs from the trainer's live parameters'")
     log(f"colmap .ply: {stats['n_gs']} gaussians served through load_checkpoint and "
         f"render_scene, bit for bit the trainer's own")
+    plain_ms = [r["ms"] for r in hist]
+    plain_shn = tr.params["shN"][tr.alive].cpu().numpy()
+    del tr, targets, images, scene, g, live, recorder
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # Phase 17 on the same written scene, before it is removed.
+    addon_launches = addons_phase(dev, tmp, wh, plain_ms, plain_shn, log)
     shutil.rmtree(tmp)
+    return launches, addon_launches
+
+
+ADDON_STEPS = 6
+TRAJ_FRAMES = 8
+ADDON_GRADS = ("pose", "bil", "app", "pp")
+
+
+class AddonStepRecorder(StepRecorder):
+    """StepRecorder that also stands in for `update_addons`: per step,
+    whether every splat gradient is finite and not all zero, and each
+    add-on's gradients finite and not all zero (the pose deltas' row of the
+    step's view among them), with the view's row index; the checks' time is
+    taken out of the step's."""
+
+    def __init__(self, tr):
+        super().__init__(tr)
+        self.update_addons = tr.update_addons
+        tr.update_addons = self._update_addons
+        self.addon_checks = []
+
+    def restore(self):
+        super().restore()
+        self.tr.update_addons = self.update_addons
+
+    def _update(self, params, opt_state, grads, *rest):
+        self._sync()
+        t = time.perf_counter()
+        self._finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        self._splats_nonzero = any(bool(g.any()) for g in grads.values())
+        self._check_ms = (time.perf_counter() - t) * 1e3
+        return self.update(params, opt_state, grads, *rest)
+
+    def _update_addons(self, grads):
+        self._sync()
+        t = time.perf_counter()
+        rec = {"splats": (self._finite, self._splats_nonzero)}
+        for name in ADDON_GRADS:
+            gs = list(grads[name].values()) if isinstance(grads[name], dict) else [grads[name]]
+            rec[name] = (all(bool(torch.isfinite(g).all()) for g in gs),
+                         any(bool(g.any()) for g in gs))
+        rec["pose_rows_nonzero"] = torch.nonzero(grads["pose"].abs().sum(dim=1) > 0)[:, 0].tolist()
+        rec["pose_shape"] = tuple(grads["pose"].shape)
+        self.addon_checks.append(rec)
+        self._check_ms += (time.perf_counter() - t) * 1e3
+        return self.update_addons(grads)
+
+
+def addon_tensors(tr) -> dict:
+    """Every add-on parameter of a trainer, by checkpoint key."""
+    out = {"pose_deltas": tr.pose_deltas, "bil_grids": tr.bil_grids}
+    out.update({f"app_{k}": v for k, v in tr.app_params.items()})
+    out.update({f"isp_{k}": v for k, v in tr.ppisp_params.items()})
+    return out
+
+
+def addon_moments(tr) -> dict:
+    out = {}
+    for p, st in (("app", tr.app_opt_state), ("isp", tr.ppisp_opt_state)):
+        out.update({f"{p}_mu_{k}": v for k, v in st.mu.items()})
+        out.update({f"{p}_nu_{k}": v for k, v in st.nu.items()})
+        out[f"{p}_count"] = st.count
+    return out
+
+
+def card_against_cpu(dev, name, fn, inputs, timer, log):
+    """`fn(**inputs)` and the gradient of a seeded cotangent with respect to
+    every input, on `dev` and on the CPU: each within 1e-5 of the CPU's
+    largest entry (matrix products in float32 on both: a TF32 product would
+    miss).  Logs the card's forward and backward ms."""
+    results = []
+    for d in (dev, torch.device("cpu")):
+        leaves = {k: v.detach().to(d).requires_grad_() for k, v in inputs.items()}
+        out = fn(**leaves)
+        if not results:
+            cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(SEED))
+        grads = torch.autograd.grad(out, list(leaves.values()), cot.to(d))
+        results.append((out.detach(), dict(zip(leaves, grads))))
+    (out, grads), (ref, ref_grads) = results
+    errs = {"forward": rel_close(out, ref, f"{name}: card against CPU")}
+    for k in inputs:
+        errs[k] = rel_close(grads[k], ref_grads[k], f"{name}: d/d{k} card against CPU")
+    rec = {"addon": name, "max_rel_err": errs}
+    if dev.type == "cuda":
+        leaves = {k: v.detach().to(dev).requires_grad_() for k, v in inputs.items()}
+        c = cot.to(dev)
+        rec["forward_ms"] = timer(lambda: fn(**leaves), 5)
+        out = fn(**leaves)
+        rec["backward_ms"] = timer(lambda: torch.autograd.grad(out, list(leaves.values()), c,
+                                                               retain_graph=True), 5)
+    log(json.dumps(rec))
+
+
+def addons_phase(dev, data_dir: str, wh, plain_ms, plain_shn, log):
+    """Phase 17: COLMAP training with every add-on, on phase 16's written
+    scene; `plain_ms` and `plain_shn` are phase 16's step times and trained
+    shN rows (live, numpy).  Returns the launch counts of train() (K3, K4 packed, K1 packed,
+    K2 packed and K5 must be > 0)."""
+    on_card = dev.type == "cuda"
+    W, H = wh
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    result_dir = os.path.join(data_dir, "result_addons")
+    cfg = trainer_mod.Config(
+        data="colmap", data_dir=data_dir, factor=1, result_dir=result_dir, max_steps=ADDON_STEPS,
+        eval_every=ADDON_STEPS, save_every=ADDON_STEPS, pose_opt=True, pose_noise=1e-3,
+        app_opt=True, bilateral_grid=True, ppisp=True, tb_every=1, tb_save_image=True,
+        render_traj=True, render_traj_path="interp", traj_frames=TRAJ_FRAMES,
+        compression="png", save_ply=True, sh_degree_interval=TRAIN_SH_INTERVAL,
+        fixed_batch=True, seed=SEED)
+    tr = trainer_mod.Trainer(cfg, device=dev)
+    size_training_capacities(tr, log)
+    targets = tr.colmap_targets()
+    n_train = len(tr.train_views)
+    start = {k: v.detach().clone() for k, v in addon_tensors(tr).items()}
+    # the parser's normalised poses are similarities, not rigid: the pose
+    # chain at zero deltas must give the training cameras back
+    vm = torch.from_numpy(tr.viewmats[tr.train_views]).to(dev)
+    back = trainer_mod.invert_se3(trainer_mod.apply_pose_deltas(
+        trainer_mod.invert_se3(vm), torch.zeros_like(tr.pose_deltas)))
+    rel_close(back, vm, "the pose chain at zero deltas", tol=1e-5)
+
+    # the trainer's own prints pass through, and are kept for the checks
+    printed = []
+    timings = {}
+
+    def timed_method(name):
+        method = getattr(tr, name)
+
+        def run(*args, **kw):
+            sync(dev)
+            t = time.perf_counter()
+            out = method(*args, **kw)
+            sync(dev)
+            timings.setdefault(name, []).append(time.perf_counter() - t)
+            if name == "run_compression":
+                timings["compression_parts"] = out
+            return out
+        setattr(tr, name, run)
+
+    for name in ("eval", "_save", "render_traj", "run_compression"):
+        timed_method(name)
+    recorder = AddonStepRecorder(tr)
+
+    def tee(*args, **kw):
+        printed.append(" ".join(str(a) for a in args))
+        builtins.print(*args, **kw)
+
+    trainer_mod.print = tee
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        tr.train(targets=targets)
+    finally:
+        del trainer_mod.print
+        recorder.restore()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    hist = recorder.records
+    for r, a in zip(hist, recorder.addon_checks):
+        log("addons_train " + json.dumps({**r, "addon_grads": a}))
+    log("addons training launches " + json.dumps(launches))
+    for name in TRAINING_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the add-ons path")
+    require(len(hist) == ADDON_STEPS == len(recorder.addon_checks),
+            f"{len(hist)} add-on steps ran")
+    for r, a in zip(hist, recorder.addon_checks):
+        require(math.isfinite(r["loss"]) and not r["overflow"],
+                f"add-ons step {r['step']}: loss {r['loss']}, overflow {r['overflow']}")
+        for name in ("splats",) + ADDON_GRADS:
+            require(a[name] == (True, True), f"add-ons step {r['step']}: {name} gradients "
+                    f"(finite, not all zero) = {a[name]}")
+        require(a["pose_shape"] == (n_train, 9) and r["view"] in a["pose_rows_nonzero"],
+                f"add-ons step {r['step']}: pose gradient {a['pose_shape']}, rows "
+                f"{a['pose_rows_nonzero']}, view {r['view']}")
+    moved = {k: not torch.equal(v, start[k]) for k, v in addon_tensors(tr).items()}
+    for prefix in ("pose_deltas", "bil_grids", "app_", "isp_"):
+        require(any(m for k, m in moved.items() if k.startswith(prefix)),
+                f"add-on {prefix} did not move in {ADDON_STEPS} steps")
+    step = ADDON_STEPS - 1
+    peak = max(r["peak_gib"] for r in hist) if on_card else None
+    log(json.dumps({"addons_step_ms": [r["ms"] for r in hist], "plain_step_ms": plain_ms,
+                    "addons_peak_gib": peak, "train_s": train_s,
+                    "eval_s": timings["eval"], "save_s": timings["_save"],
+                    "traj_s": timings["render_traj"], "compression_s": timings["run_compression"],
+                    "compression_parts_s": timings["compression_parts"],
+                    "moved": moved}))
+
+    # The checkpoint, in a fresh trainer on the card: equal bit for bit.
+    ckpt = os.path.join(result_dir, f"ckpt_{step}.npz")
+    again = trainer_mod.Trainer(dataclasses.replace(
+        cfg, ckpt=ckpt, result_dir=os.path.join(data_dir, "result_again"), tb_every=0,
+        render_traj=False, compression=""), device=dev)
+    for what, got, want in (("params", again.params, tr.params),
+                            ("mu", again.opt_state.mu, tr.opt_state.mu),
+                            ("nu", again.opt_state.nu, tr.opt_state.nu),
+                            ("add-ons", addon_tensors(again), addon_tensors(tr)),
+                            ("add-on moments", addon_moments(again), addon_moments(tr))):
+        require(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+                f"the checkpoint's {what} differ after loading")
+    require(torch.equal(again.alive, tr.alive) and again.start_step == ADDON_STEPS,
+            "the checkpoint's alive mask or step differ")
+    del again
+    log(f"add-ons checkpoint: {os.path.getsize(ckpt)} bytes, loaded bit for bit")
+
+    # Card against CPU on view 0's 4k render: the slice, PPISP, the head.
+    vm0 = torch.from_numpy(tr.viewmats[:1]).to(dev)
+    K0 = torch.from_numpy(tr.Ks[:1]).to(dev)
+    with torch.no_grad():
+        img = tr.render(tr.params, tr.alive, vm0, K0, tr.sh_degree_at(step), app=tr.app_params,
+                        cam_ids=None)[0][0]
+    require(img.shape == (H, W, 3) and bool(torch.isfinite(img).all()), "view 0's render")
+    from gsplat_tpu_torch.training import apply_appearance, apply_ppisp, bilateral_slice_image
+
+    zero = torch.zeros(1, dtype=torch.long)
+    card_against_cpu(dev, "bilateral_slice_image", lambda grid, rgb: bilateral_slice_image(
+        grid, rgb)[0], {"grid": tr.bil_grids[0], "rgb": img}, cuda_timer, log)
+    card_against_cpu(dev, "apply_ppisp", lambda img, **pp: apply_ppisp(
+        pp, img, zero.to(img.device), zero.to(img.device)),
+        {"img": img[None], **tr.ppisp_params}, cuda_timer, log)
+    cam_pos = trainer_mod.invert_se3(vm0)[:, :3, 3]
+    dirs = tr.params["means"][None] - cam_pos[:, None]
+    card_against_cpu(dev, "apply_appearance", lambda features, dirs, **app: apply_appearance(
+        app, features, zero.to(dirs.device), dirs, tr.sh_degree_at(step)),
+        {"features": tr.params["features"], "dirs": dirs, **tr.app_params}, cuda_timer, log)
+    del img, dirs
+
+    # Compression: the planes, the decompression against the cropped and
+    # sorted splats, the k-means labels of the card against the CPU's.
+    from gsplat_tpu_torch.compression import png_compression as pc
+
+    cdir = os.path.join(result_dir, "compression")
+    planes = sorted(os.listdir(cdir))
+    require(planes == sorted(["meta.json", "means_l.png", "means_u.png", "quats.png",
+                              "scales.png", "opacities.png", "sh0.png", "shN_codebook.npz",
+                              "shN_labels.png"]), f"compression wrote {planes}")
+    keep = tr.alive
+    live = {k: tr.params[k][keep].detach().cpu().numpy()
+            for k in ("means", "scales", "quats", "opacities", "sh0", "shN")}
+    live["opacities"] = live["opacities"].reshape(-1)
+    n_side = int(len(live["means"]) ** 0.5)
+    ref = pc.prepare_splats(live, device=dev)
+    out = pc.PngCompression().decompress(cdir)
+    require(all(len(v) == n_side ** 2 for v in out.values()),
+            f"decompressed {[len(v) for v in out.values()]} gaussians, not {n_side ** 2}")
+    for k in ("quats", "scales", "opacities", "sh0"):
+        r = ref[k].reshape(n_side ** 2, -1)
+        half = (r.max(axis=0) - r.min(axis=0)) / 255 / 2
+        d = np.abs(out[k].reshape(n_side ** 2, -1) - r)
+        require(bool((d <= half + 1e-6 * np.maximum(np.abs(r), 1)).all()),
+                f"decompressed {k}: {float((d - half).max())} over half an 8-bit step")
+    half = (ref["means"].max(axis=0) - ref["means"].min(axis=0)) / 65535 / 2
+    d = np.abs(pc.log_transform(out["means"]) - ref["means"])
+    require(bool((d <= half + 1e-6 * np.maximum(np.abs(ref["means"]), 1)).all()),
+            f"decompressed means: {float((d - half).max())} over half a 16-bit step (log)")
+    # The phase's shN rows are all zero (the appearance head replaces the SH
+    # colours, as in the JAX trainer), so the k-means is held to the CPU on
+    # phase 16's trained shN rows: the card's run at up to 65,536 centres
+    # (timed), then one assignment to its centres on the card and on the CPU
+    # (a whole CPU run would take minutes), the share of equal labels.
+    shn_zero = not ref["shN"].any()
+    shn = plain_shn[: n_side ** 2].reshape(n_side ** 2, -1)
+    sync(dev)
+    t = time.perf_counter()
+    centers, _ = pc._kmeans(shn, 2 ** 16, device=dev)
+    card_kmeans_s = time.perf_counter() - t
+    xs, cs = torch.from_numpy(shn), torch.from_numpy(centers)
+    card_labels = pc._assign(xs.to(dev), cs.to(dev)).cpu()
+    t = time.perf_counter()
+    cpu_labels = pc._assign(xs, cs)
+    cpu_assign_s = time.perf_counter() - t
+    with open(os.path.join(cdir, "meta.json")) as f:
+        meta = json.load(f)
+    comp_bytes = sum(os.path.getsize(os.path.join(cdir, f)) for f in planes)
+    ply_bytes = os.path.getsize(os.path.join(result_dir, "ply", f"point_cloud_{step}.ply"))
+    t = time.perf_counter()
+    perm = pc.sort_splats(pc.prepare_splats(live, use_sort=False, device=dev), "plas",
+                          device=dev)["means"]
+    plas_s = time.perf_counter() - t
+    require(len(perm) == n_side ** 2, "PLAS lost rows")
+
+    # The decompressed splats rendered against the live ones on view 0.
+    renders = []
+    for splats in (out, live):
+        g = splats_from_numpy(splats, device=dev)
+        scene = GaussianInferenceScene.from_gaussian_scene(g, id="addons")
+        im, alpha, m = render_scene(scene, viewmat=tr.viewmats[0], K=tr.Ks[0], width=W,
+                                    height=H, isect_capacity=cfg.isect_capacity,
+                                    row_capacity=cfg.row_capacity)
+        require(not bool(m["isect_overflow"]) and float(alpha.mean()) > 0,
+                "a compression render overflowed or is empty")
+        renders.append(torch.clamp(im, 0.0, 1.0))
+    mse = float(torch.mean((renders[0] - renders[1]) ** 2))
+    log(json.dumps({"compression": {
+        "gaussians": n_side ** 2, "bytes": comp_bytes, "ply_bytes": ply_bytes,
+        "ratio": ply_bytes / comp_bytes, "psnr_vs_live_db": -10.0 * math.log10(max(mse, 1e-12)),
+        "meta_keys": sorted(meta), "phase_shN_all_zero": shn_zero,
+        "kmeans_plain_shN": {"rows": len(shn), "k": len(centers), "card_s": card_kmeans_s,
+                             "labels_card_eq_cpu": float((card_labels == cpu_labels)
+                                                         .double().mean()),
+                             "cpu_assign_s": cpu_assign_s},
+        "plas_sort_s": plas_s,
+        "plane_bytes": {f: os.path.getsize(os.path.join(cdir, f)) for f in planes}}}))
+    del renders, out, ref, live
+
+    # The trajectory: interp gives traj_frames // (views - 1) frames a segment.
+    frames = sorted(os.listdir(os.path.join(result_dir, "traj")))
+    n_frames = max(TRAJ_FRAMES // (n_train - 1), 1) * (n_train - 1)
+    require(frames == [f"{i:04d}.png" for i in range(n_frames)],
+            f"trajectory frames {frames}, expected {n_frames}")
+    for f in frames:
+        with open(os.path.join(result_dir, "traj", f), "rb") as fh:
+            px = decode_png(fh.read(), f)
+        require(px.shape == (H, W, 3) and int(px.max()) > int(px.min()),
+                f"trajectory frame {f}: {px.shape}, constant {int(px.min())}")
+    # TensorBoard: the event file, or the trainer's note where it is not installed
+    if importlib.util.find_spec("tensorboard") is not None:
+        events = [f for f in os.listdir(os.path.join(result_dir, "tb"))
+                  if f.startswith("events.out.tfevents")]
+        require(bool(events), "no TensorBoard event file")
+        tb = f"event file {events[0]}"
+    else:
+        require(any("tensorboard unavailable" in line for line in printed),
+                "tensorboard is not installed and the trainer printed no note")
+        tb = "not installed: the trainer printed its note"
+    # The same steps without TensorBoard: its writer thread checksums each
+    # 4k canvas in pure Python (without TensorFlow), which the steps above
+    # share the interpreter with.
+    recorder = AddonStepRecorder(tr)
+    vms = torch.from_numpy(tr.viewmats[tr.train_views]).to(dev)
+    Ks = torch.from_numpy(tr.Ks[tr.train_views]).to(dev)
+    for i in range(3):
+        tr.run_step(ADDON_STEPS + i, np.array([i % n_train]), vms, Ks, targets)
+    recorder.restore()
+    log(json.dumps({"addons_step_ms_without_tensorboard": [r["ms"] for r in recorder.records],
+                    "peak_gib": [r["peak_gib"] for r in recorder.records]}))
+    if on_card:  # device time by kernel and the idle share of 3 more such steps
+        steps = iter(range(ADDON_STEPS + 3, ADDON_STEPS + 6))
+
+        def one_step():
+            i = next(steps)
+            tr.run_step(i, np.array([i % n_train]), vms, Ks, targets)
+
+        device_profile(one_step, recorder.records[-1]["ms"], log, "addon_step")
+    log(json.dumps({"trajectory": {"frames": len(frames), "seconds": timings["render_traj"]},
+                    "tensorboard": tb, "phase_s": time.perf_counter() - t_phase,
+                    "phase_peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                       if on_card else None)}))
     return launches
 
 
@@ -2919,8 +3319,9 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     av_launches, av_records, av_k9, av_k2, av_k1 = av_phase(dev, timer, log)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    # Training from a COLMAP scene, with the eval and the .ply served again.
-    colmap_launches = colmap_phase(dev, raw, n_cell, grid, (W, H), log)
+    # Training from a COLMAP scene, with the eval and the .ply served again;
+    # then the same scene with every add-on of the trainer.
+    colmap_launches, addon_launches = colmap_phase(dev, raw, n_cell, grid, (W, H), log)
     for rec, av_rec in zip(gut_records, av_records):
         rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
         rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2954,7 +3355,8 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     # each kernel's launches on every path, and on its own path as `launches`
     paths = {"serving": launches, "serving_exact": exact_launches, "training": train_launches,
              "2dgs": surfel_launches, "3dgut": gut_launches, "av": av_launches,
-             "colmap": colmap_launches, "analysis": analysis_launches}
+             "colmap": colmap_launches, "addons": addon_launches,
+             "analysis": analysis_launches}
     for rec in records:
         rec["launches_by_path"] = {p: counts[rec["name"]] for p, counts in paths.items()}
         rec["launches"] = rec["launches_by_path"][MAIN_PATH[rec["name"]]]

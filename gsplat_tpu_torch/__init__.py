@@ -1,17 +1,21 @@
 """gsplat_tpu_torch: the PyTorch / CUDA port of gsplat_tpu for NVIDIA Hopper.
 
-It serves trained 3DGS scenes (rasterization, render_scene) and trains 3DGS
-(trainer.Trainer, default or MCMC strategy) and 2DGS surfel models
-(trainer_2dgs.Trainer2DGS, rasterization_2dgs), with hand-written CUDA
+It serves trained 3DGS scenes (rasterization, render_scene), trains 3DGS
+(trainer.Trainer, default or MCMC strategy, with the JAX trainer's pose,
+appearance, bilateral-grid and PPISP add-ons) and 2DGS surfel models
+(trainer_2dgs.Trainer2DGS, rasterization_2dgs), and compresses a scene into
+PNG planes (PngCompression), with hand-written CUDA
 kernels under csrc/.  Kernels launch for CUDA tensors; their plain PyTorch
 versions run for CPU tensors.  The JAX package `gsplat_tpu` stays the
 reference; this package never imports it.  The export list is the JAX
-package's (gsplat_tpu/__init__.py), but for PngCompression, and the
-port's own entry points besides; the feature probes (`has_3dgs()` etc.)
+package's (gsplat_tpu/__init__.py); the port's own entry points
+`splats_from_numpy`, `load_checkpoint` and `render_projected` are importable
+from here besides; the feature probes (`has_3dgs()` etc.)
 return True, as there: every subsystem is built in.
 """
 
 from . import ops, sensors
+from .compression import PngCompression
 from .color_correct import color_correct_affine, color_correct_quadratic
 from .exporter import export_splats, load_ply_to_splats
 from .losses import (
@@ -114,6 +118,7 @@ __all__ = [
     "GaussianScene",
     "LidarModel",
     "MCMCStrategy",
+    "PngCompression",
     "RollingShutterType",
     "Scene",
     "SpinningDirection",
@@ -150,7 +155,6 @@ __all__ = [
     "lidar_distance_loss",
     "lidar_intensity_loss",
     "lidar_raydrop_loss",
-    "load_checkpoint",
     "load_ply_to_splats",
     "make_lidar",
     "mse_loss",
@@ -170,13 +174,11 @@ __all__ = [
     "rasterize_to_pixels_eval3d",
     "rasterize_to_pixels_sparse",
     "rasterize_top_contributing_gaussian_ids",
-    "render_projected",
     "render_scene",
     "scale_reg_loss",
     "selective_adam_update",
     "sensors",
     "spherical_harmonics",
-    "splats_from_numpy",
     "ssim_loss",
     "total_variation_loss",
     "world_to_cam",

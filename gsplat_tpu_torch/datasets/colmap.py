@@ -14,7 +14,10 @@ that the card's machine needs no imaging package (`encode_png` writes one,
 and `write_model_binary` a binary model, for scenes made by a program).  Any other format goes
 through PIL; without PIL it raises an ImportError naming the file and its
 format.  Every image is returned as RGB float32 in [0, 1], as the JAX
-dataset's `Image.open(path).convert("RGB")` gives it.
+dataset's `Image.open(path).convert("RGB")` gives it.  For data planes
+(the PNG compression's), `decode_png_channels` returns the stored channels
+as `np.asarray(PIL.Image.open(path))` does, gray+alpha included, and
+`encode_png` writes gray, gray+alpha, RGB and RGBA.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import os
 import struct
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -177,8 +180,9 @@ def similarity_from_cameras(c2w: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels (bit depth 8 only): gray, RGB, RGBA
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+# PNG colour type -> channels (bit depth 8 only): gray, RGB, gray+alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_PNG_COLOUR_TYPES = {c: t for t, c in _PNG_CHANNELS.items()}
 
 
 def _png_unfilter(f: np.ndarray, ftype: np.ndarray) -> np.ndarray:
@@ -216,9 +220,9 @@ def _png_unfilter(f: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return x[1:, 1:].astype(np.uint8)
 
 
-def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
-    """An 8-bit, non-interlaced gray, RGB or RGBA PNG as RGB uint8 [H, W, 3]
-    (gray replicated, alpha dropped, as PIL's convert("RGB") does)."""
+def _png_pixels(data: bytes, name: str, ctypes) -> Tuple[np.ndarray, int]:
+    """The pixels [H, W, channels] uint8 of an 8-bit, non-interlaced PNG of
+    one of the colour types `ctypes`, and its colour type."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     pos, header, idat = 8, None, []
@@ -236,10 +240,12 @@ def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{name}: PNG without IHDR or IDAT")
     W, H, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
+    if depth != 8 or ctype not in ctypes or interlace != 0:
+        kinds = ", ".join(f"{t} ({k})" for t, k in ((0, "gray"), (2, "RGB"), (4, "gray+alpha"),
+                                                    (6, "RGBA")) if t in ctypes)
         raise ValueError(f"{name}: PNG of bit depth {depth}, colour type {ctype}, interlace "
-                         f"{interlace}; decoded here: bit depth 8, colour types 0 (gray), 2 "
-                         "(RGB) and 6 (RGBA), no interlace")
+                         f"{interlace}; decoded here: bit depth 8, colour types {kinds}, "
+                         "no interlace")
     bpp = _PNG_CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != H * (W * bpp + 1):
@@ -247,20 +253,37 @@ def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
     rows = raw.reshape(H, W * bpp + 1)
     if rows[:, 0].max() > 4:
         raise ValueError(f"{name}: PNG filter type {int(rows[:, 0].max())}")
-    px = _png_unfilter(rows[:, 1:].reshape(H, W, bpp), rows[:, 0])
+    return _png_unfilter(rows[:, 1:].reshape(H, W, bpp), rows[:, 0]), ctype
+
+
+def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
+    """An 8-bit, non-interlaced gray, RGB or RGBA PNG as RGB uint8 [H, W, 3]
+    (gray replicated, alpha dropped, as PIL's convert("RGB") does)."""
+    px, ctype = _png_pixels(data, name, (0, 2, 6))
     if ctype == 0:
         return np.repeat(px, 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
 
 
-def encode_png(rgb: np.ndarray, filter_type: int = 0, level: int = 6) -> bytes:
-    """An 8-bit image [H, W, C] (C = 1 gray, 3 RGB, 4 RGBA) as PNG bytes,
-    every row with `filter_type` (0 to 4), compressed at zlib `level`."""
+def decode_png_channels(data: bytes, name: str = "<png>") -> np.ndarray:
+    """An 8-bit, non-interlaced PNG with the channels it stores, as
+    np.asarray(PIL.Image.open(...)) gives them: [H, W] gray, [H, W, 2]
+    gray+alpha, [H, W, 3] RGB, [H, W, 4] RGBA."""
+    px, ctype = _png_pixels(data, name, (0, 2, 4, 6))
+    return px[..., 0] if ctype == 0 else px
+
+
+def encode_png(rgb: np.ndarray, filter_type: Optional[int] = 0, level: int = 6) -> bytes:
+    """An 8-bit image [H, W] or [H, W, C] (C = 1 gray, 2 gray+alpha, 3 RGB,
+    4 RGBA) as PNG bytes, every row with `filter_type` (0 to 4), or with
+    None each row with the filter whose residuals, read as signed bytes,
+    have the least absolute sum (libpng's choice); compressed at zlib
+    `level`."""
     img = np.ascontiguousarray(rgb, dtype=np.uint8)
     if img.ndim == 2:
         img = img[..., None]
     H, W, C = img.shape
-    ctype = {1: 0, 3: 2, 4: 6}[C]
+    ctype = _PNG_COLOUR_TYPES[C]
     x = img.astype(np.int32)
     a = np.zeros_like(x)
     a[:, 1:] = x[:, :-1]  # left
@@ -270,10 +293,17 @@ def encode_png(rgb: np.ndarray, filter_type: int = 0, level: int = 6) -> bytes:
     c[1:, 1:] = x[:-1, :-1]  # up-left
     p = a + b - c
     pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-    pred = [np.zeros_like(x), a, b, (a + b) >> 1,
-            np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))][filter_type]
-    body = ((x - pred) & 255).astype(np.uint8).reshape(H, W * C)
-    raw = np.concatenate([np.full((H, 1), filter_type, np.uint8), body], axis=1)
+    preds = [np.zeros_like(x), a, b, (a + b) >> 1,
+             np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))]
+    if filter_type is None:
+        res = np.stack([((x - q) & 255).astype(np.uint8).reshape(H, W * C) for q in preds])
+        cost = np.abs(res.view(np.int8).astype(np.int32)).sum(axis=2)  # [5, H]
+        ftype = np.argmin(cost, axis=0).astype(np.uint8)
+        body = res[ftype, np.arange(H)]
+    else:
+        ftype = np.full(H, filter_type, np.uint8)
+        body = ((x - preds[filter_type]) & 255).astype(np.uint8).reshape(H, W * C)
+    raw = np.concatenate([ftype[:, None], body], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data

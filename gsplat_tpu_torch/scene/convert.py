@@ -14,6 +14,12 @@ state) across in the flat layout of that checkpoint (`p_*`, `mu_*`, `nu_*`,
 `opt_count`, `alive`, `ss_*`; examples/simple_trainer.py:_save), so a
 checkpoint of either trainer loads in the other.  The default strategy's
 `scene_scale` is a float in the state and a 0-d array in the file.
+`addons_to_numpy` / `addons_from_numpy` do the same for the trainer's
+add-ons, under the JAX trainer's keys (examples/simple_trainer.py:_save,
+_load): `pose_deltas`, `bil_grids`, the appearance head's `app_*` with its
+Adam moments `amu_*`, `anu_*` and `app_opt_count`, PPISP's `isp_*`, `imu_*`,
+`inu_*` and `ppisp_opt_count`; the appearance features ride with the
+parameters as `p_features`.
 """
 
 from __future__ import annotations
@@ -112,3 +118,49 @@ def train_state_to_numpy(params: Mapping[str, torch.Tensor], alive: torch.Tensor
     for k, v in (strategy_state or {}).items():
         flat[f"ss_{k}"] = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
     return flat
+
+
+def addons_to_numpy(pose_deltas: Optional[torch.Tensor] = None,
+                    bil_grids: Optional[torch.Tensor] = None,
+                    app_params: Optional[Mapping[str, torch.Tensor]] = None,
+                    app_opt_state: Optional[AdamState] = None,
+                    ppisp_params: Optional[Mapping[str, torch.Tensor]] = None,
+                    ppisp_opt_state: Optional[AdamState] = None) -> Dict[str, np.ndarray]:
+    """The trainer's add-ons in the JAX checkpoint's flat layout; None
+    leaves an add-on out."""
+    np_ = lambda v: v.detach().cpu().numpy()
+    flat: Dict[str, np.ndarray] = {}
+    if pose_deltas is not None:
+        flat["pose_deltas"] = np_(pose_deltas)
+    if bil_grids is not None:
+        flat["bil_grids"] = np_(bil_grids)
+    for params, state, p, m, v, count in (
+            (app_params, app_opt_state, "app_", "amu_", "anu_", "app_opt_count"),
+            (ppisp_params, ppisp_opt_state, "isp_", "imu_", "inu_", "ppisp_opt_count")):
+        if params is None:
+            continue
+        flat[count] = np_(state.count)
+        for k, x in params.items():
+            flat[p + k], flat[m + k], flat[v + k] = np_(x), np_(state.mu[k]), np_(state.nu[k])
+    return flat
+
+
+def addons_from_numpy(flat: Mapping[str, np.ndarray], *,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """The add-ons a flat checkpoint holds, on `device` (the card by
+    default): "pose_deltas" and "bil_grids" tensors, "app" and "ppisp"
+    (params, AdamState) pairs."""
+    dev = resolve_device(device)
+    to = lambda v: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+    out: Dict[str, Any] = {k: to(flat[k]) for k in ("pose_deltas", "bil_grids") if k in flat}
+    for name, p, m, v, count in (("app", "app_", "amu_", "anu_", "app_opt_count"),
+                                 ("ppisp", "isp_", "imu_", "inu_", "ppisp_opt_count")):
+        params = {k[len(p):]: to(x) for k, x in flat.items() if k.startswith(p) and k != count}
+        if not params:
+            continue
+        zero = adam_init(params)
+        mu = {k: to(flat[m + k]) if m + k in flat else zero.mu[k] for k in params}
+        nu = {k: to(flat[v + k]) if v + k in flat else zero.nu[k] for k in params}
+        n = torch.tensor(int(flat[count]) if count in flat else 0, dtype=torch.int32, device=dev)
+        out[name] = (params, AdamState(mu=mu, nu=nu, count=n))
+    return out

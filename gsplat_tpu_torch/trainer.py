@@ -5,7 +5,8 @@ densification strategy (default or MCMC), on a capacity-padded model with an
 Port of `examples/simple_trainer.py` (Config, knn_mean_dist, create_splats,
 Runner.__init__ on its colmap and npz branches with either strategy,
 render, make_train_step, make_update_step, train, _make_npz_targets, eval,
-_save with its `.ply` export, _load).  As in the JAX trainer, `render` (the
+render_traj, _save with its `.ply` export, run_compression, _load).  As in
+the JAX trainer, `render` (the
 training step and the eval) takes the bf16-pair packed sort payload and
 packed per-slot gradients by default (`Config.pack_payload`,
 `Config.pack_grads`, both True); set both False for the exact float32 path.  The targets are rendered
@@ -25,17 +26,38 @@ memory and the time on those views.  Or the data is an npz-like mapping
 width, height}: pass it as `data` (whatever `Config.data` says), or set
 `Config.data="npz"` and name a `.npz` file in `Config.data_dir` (or the
 GSPLAT_TPU_TEST_DATA environment variable); its targets are clean renders
-of the full point cloud and the last view is held out.  `Config.save_ply`
+of the full point cloud and the last view is held out (or, with
+`npz_traj_views`, views along a path through the cameras, every
+`npz_eval_every`-th held out).  `Config.save_ply`
 writes the live gaussians as a 3DGS `.ply` at every save.  The trainer runs
 on the card unless `device="cpu"`.
 
-Not ported yet (ROADMAP Queue 1): pose / bilateral-grid / appearance /
-PPISP options, the viewer, TensorBoard, trajectories and compression.
+The add-ons of the JAX `Config`, each as the JAX trainer does it:
+  * `pose_opt`: per-training-view 9-D pose deltas on the camera-to-world
+    matrices (training/pose.py), regularised by `pose_opt_reg`, stepped by
+    their own Adam; `pose_noise` perturbs the training poses first;
+  * `app_opt`: a per-gaussian `features` leaf [cap, 32] and an appearance
+    head whose colours [C, N, 3] = sigmoid(head + sh0) replace the SH
+    colours (the eval and the trajectory use the zero embedding);
+  * `bilateral_grid`: per-training-view grids of colour affines sliced over
+    the raw render (training/bilateral_grid.py), with their TV loss; the
+    eval of the training views applies them too;
+  * `ppisp`: a learned capture chain on the raw render (training/ppisp.py);
+  * `render_traj`: a fly-through of `traj_frames` along `render_traj_path`
+    (datasets/traj.py) after training, as PNGs (and an mp4 where imageio
+    and its ffmpeg plugin are installed);
+  * `compression="png"`: PngCompression of the live gaussians after
+    training, into `result_dir/compression`;
+  * `tb_every`, `tb_save_image`: TensorBoard scalars (and the target |
+    render canvas) under `result_dir/tb` where `tensorboard` is installed.
+The live viewer (`disable_viewer`, `viewer_port`) is not ported yet
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -46,14 +68,41 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
-from .datasets import Dataset, Parser
+from .compression import PngCompression
+from .datasets import Dataset, Parser, encode_png
+from .datasets.traj import (
+    generate_ellipse_path_z,
+    generate_interpolated_path,
+    generate_spiral_path,
+)
 from .exporter import export_splats
 from .losses import l1_loss, ssim, ssim_loss
-from .optimizers import AdamState, adam_init, selective_adam_update
+from .optimizers import AdamState, adam_init, adam_update, selective_adam_update
 from .rendering import rasterization
-from .scene.convert import train_state_from_numpy, train_state_to_numpy
+from .scene.convert import (
+    addons_from_numpy,
+    addons_to_numpy,
+    train_state_from_numpy,
+    train_state_to_numpy,
+)
 from .strategy import DefaultStrategy, MCMCStrategy
-from .training import exponential_lr, load_lpips_weights, lpips, lpips_proxy
+from .training import (
+    apply_appearance,
+    apply_pose_deltas,
+    apply_ppisp,
+    bilateral_slice_image,
+    exponential_lr,
+    init_appearance,
+    init_bilateral_grids,
+    init_pose_deltas,
+    init_ppisp,
+    invert_se3,
+    load_lpips_weights,
+    lpips,
+    lpips_proxy,
+    ppisp_regularization,
+    total_variation_loss,
+)
 
 SH_C0 = 0.28209479177387814
 
@@ -104,6 +153,38 @@ class Config:
     npz_subsample: int = 1  # train from every k-th point against full-cloud targets
     lpips_weights: str = ""  # LPIPS(VGG) weights .npz for eval (training/metrics.py)
     save_ply: bool = False  # a .ply of the live gaussians at every save
+    # pose optimisation: per-training-view deltas on the camera-to-world matrices
+    pose_opt: bool = False
+    pose_opt_lr: float = 1e-5
+    pose_opt_reg: float = 1e-6
+    pose_noise: float = 0.0  # perturb the training poses (to test pose optimisation)
+    # bilateral grids: per-training-view grids of 3x4 colour affines on the renders
+    bilateral_grid: bool = False
+    bilateral_grid_shape: str = "16,16,8"  # grid X,Y,W
+    tv_reg: float = 10.0  # weight of the grids' TV loss
+    # a fly-through render after training
+    render_traj: bool = False
+    render_traj_path: str = "interp"  # raw | interp | ellipse | spiral
+    traj_frames: int = 60
+    # npz: train on this many views along a path through the cameras (0: the cameras)
+    npz_traj_views: int = 0
+    npz_eval_every: int = 8  # npz path views: hold out every n-th for the eval
+    compression: str = ""  # after training: "" (off) | "png"
+    # appearance: per-view embedding and an MLP colour head on a per-gaussian feature
+    app_opt: bool = False
+    app_embed_dim: int = 16
+    app_opt_lr: float = 1e-3
+    app_opt_reg: float = 1e-6
+    # a learned per-camera ISP on the training renders before the loss
+    ppisp: bool = False
+    ppisp_lr: float = 1e-3
+    ppisp_reg: float = 1e-3
+    tb_every: int = 100  # TensorBoard cadence in steps, 0 = off
+    tb_save_image: bool = False  # a target | render canvas at each TensorBoard step
+
+
+APP_FEATURE_DIM = 32  # the appearance head's per-gaussian features
+TRAJ_PATHS = ("raw", "interp", "ellipse", "spiral")
 
 
 def knn_mean_dist(points: np.ndarray, k: int = 4) -> np.ndarray:
@@ -117,7 +198,8 @@ def knn_mean_dist(points: np.ndarray, k: int = 4) -> np.ndarray:
 def create_splats(points: np.ndarray, rgbs: np.ndarray, capacity: int, cfg: Config,
                   device: torch.device, dist: Optional[np.ndarray] = None):
     """Initial gaussian parameters in capacity-padded tensors and the alive
-    mask.  `dist` is `knn_mean_dist(points)` when the caller has it already."""
+    mask, with the `features` leaf when `cfg.app_opt`.  `dist` is
+    `knn_mean_dist(points)` when the caller has it already."""
     N = points.shape[0]
     if N > capacity:
         raise ValueError(f"{N} points exceed the capacity {capacity}")
@@ -147,6 +229,8 @@ def create_splats(points: np.ndarray, rgbs: np.ndarray, capacity: int, cfg: Conf
         "scales": pad(scales.astype(np.float32)), "opacities": pad(opac),
         "sh0": pad(sh0.astype(np.float32)), "shN": pad(shN),
     }
+    if cfg.app_opt:  # the appearance head's per-gaussian features
+        arrays["features"] = pad(rng.random((N, APP_FEATURE_DIM), dtype=np.float32))
     params = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     alive = torch.from_numpy(np.arange(capacity) < N).to(device)
     return params, alive
@@ -167,6 +251,10 @@ class Trainer:
             raise ValueError(f"strategy must be 'default' or 'mcmc', got {cfg.strategy!r}")
         if data is None and cfg.data not in ("colmap", "npz"):
             raise ValueError(f"data must be 'colmap' or 'npz', got {cfg.data!r}")
+        if cfg.compression not in ("", "png"):
+            raise ValueError(f"unknown compression: {cfg.compression}")
+        if cfg.render_traj and cfg.render_traj_path not in TRAJ_PATHS:
+            raise ValueError(f"unknown render_traj_path: {cfg.render_traj_path}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
@@ -206,9 +294,12 @@ class Trainer:
             self._full_rgbs = (np.asarray(data["colors"]) / 255.0).astype(np.float32)
             sub = max(cfg.npz_subsample, 1)
             points, rgbs = self._full_points[::sub], self._full_rgbs[::sub]
-            # no photographs: train views 0..V-2 against rendered targets, eval view V-1
-            self.train_views = list(range(len(self.viewmats) - 1))
-            self.eval_views = [len(self.viewmats) - 1]
+            if cfg.npz_traj_views > 0:
+                self._npz_path_views()
+            else:
+                # no photographs: train views 0..V-2 against rendered targets, eval view V-1
+                self.train_views = list(range(len(self.viewmats) - 1))
+                self.eval_views = [len(self.viewmats) - 1]
             centers = np.linalg.inv(self.viewmats)[:, :3, 3]
             self.scene_scale = float(
                 np.linalg.norm(centers - centers.mean(0), axis=1).max()) * 1.1
@@ -239,6 +330,9 @@ class Trainer:
         self.opt_state = adam_init(self.params)
         self.strategy.check_sanity(self.params, (self.opt_state.mu, self.opt_state.nu))
         self.start_step = 0
+        self._points_np = np.asarray(points)  # the spiral trajectory's bounds
+        self._init_addons()
+        self.writer = None  # TensorBoard's, open during train()
         self.lpips_w = (load_lpips_weights(cfg.lpips_weights, device=self.device)
                         if cfg.lpips_weights and os.path.exists(cfg.lpips_weights) else None)
         if cfg.ckpt:
@@ -253,12 +347,91 @@ class Trainer:
             "sh0": cfg.sh0_lr * bs_scale,
             "shN": cfg.shN_lr * bs_scale,
         }
+        if cfg.app_opt:
+            self.lrs["features"] = cfg.sh0_lr * bs_scale
+
+    def _npz_path_views(self) -> None:
+        """npz with `npz_traj_views`: the views along an interpolated path
+        through the cameras, every `npz_eval_every`-th held out for the eval;
+        reordered [train..., eval...]."""
+        cfg = self.cfg
+        c2w = np.linalg.inv(self.viewmats)[:, :3, :]
+        per_seg = max(cfg.npz_traj_views // max(len(c2w) - 1, 1), 1)
+        path = generate_interpolated_path(c2w, per_seg)
+        bottom = np.broadcast_to(np.array([0, 0, 0, 1], np.float32), (len(path), 1, 4))
+        vm = np.linalg.inv(np.concatenate([path.astype(np.float32), bottom], axis=1))
+        vm = vm.astype(np.float32)
+        Ks = np.broadcast_to(self.Ks[:1], (len(vm), 3, 3)).copy()
+        idx = np.arange(len(vm))
+        held = idx % max(cfg.npz_eval_every, 2) == 1
+        order = np.concatenate([idx[~held], idx[held]])
+        self.viewmats, self.Ks = vm[order], Ks[order]
+        n_tr = int((~held).sum())
+        self.train_views = list(range(n_tr))
+        self.eval_views = list(range(n_tr, len(vm)))
+
+    def _init_addons(self) -> None:
+        """The add-ons' parameters and Adam states, as the JAX trainer makes
+        them: pose deltas (always, zero), the grids, PPISP (one camera, a
+        frame per training view) and the appearance head (from the trainer's
+        generator) where switched on."""
+        cfg = self.cfg
+        dev = self.device
+        n_train = len(self.train_views)
+        self.pose_deltas = init_pose_deltas(n_train, dev)
+        self.pose_opt_state = adam_init({"pose": self.pose_deltas})
+        self.pose_perturb = None
+        if cfg.pose_noise > 0:
+            noise = np.random.default_rng(cfg.seed + 1).normal(0, cfg.pose_noise, (n_train, 9))
+            self.pose_perturb = torch.from_numpy(noise.astype(np.float32)).to(dev)
+        self.bil_grids = self.bil_opt_state = None
+        if cfg.bilateral_grid:
+            gx, gy, gw = (int(v) for v in cfg.bilateral_grid_shape.split(","))
+            self.bil_grids = init_bilateral_grids(n_train, gx, gy, gw, device=dev)
+            self.bil_opt_state = adam_init({"bil": self.bil_grids})
+        self.bil_lr = 2e-3 * math.sqrt(cfg.batch_size)
+        self.ppisp_params = self.ppisp_opt_state = None
+        if cfg.ppisp:
+            self.ppisp_params = init_ppisp(num_cameras=1, num_frames=n_train, device=dev)
+            self.ppisp_opt_state = adam_init(self.ppisp_params)
+        self.app_params = self.app_opt_state = None
+        if cfg.app_opt:
+            self.app_params = init_appearance(self.generator, n_train, APP_FEATURE_DIM,
+                                              embed_dim=cfg.app_embed_dim,
+                                              sh_degree=cfg.sh_degree)
+            self.app_opt_state = adam_init(self.app_params)
+
+    def addon_params(self) -> Dict[str, Any]:
+        """The add-ons switched on, by the name of their gradient: "pose"
+        [n_train, 9], "bil" the grids, "app" and "pp" dicts of tensors."""
+        cfg = self.cfg
+        out: Dict[str, Any] = {}
+        if cfg.pose_opt:
+            out["pose"] = self.pose_deltas
+        if cfg.bilateral_grid:
+            out["bil"] = self.bil_grids
+        if cfg.app_opt:
+            out["app"] = self.app_params
+        if cfg.ppisp:
+            out["pp"] = self.ppisp_params
+        return out
 
     # ------------------------------------------------------------------ render
 
-    def render(self, params, alive, viewmats, Ks, sh_degree, offset=None, absgrad=False):
+    def render(self, params, alive, viewmats, Ks, sh_degree, offset=None, absgrad=False,
+               app=None, cam_ids=None):
+        """Colours [C, H, W, 3], alphas and meta.  With `app` (the appearance
+        head's parameters), the colours are sigmoid(head + sh0) per camera,
+        the embeddings of `cam_ids` (None: the zero embedding), not SH."""
         op = torch.where(alive, torch.sigmoid(params["opacities"]), 0.0)
-        colors = torch.cat([params["sh0"], params["shN"]], dim=1)
+        if app is not None:
+            cam_pos = invert_se3(viewmats)[:, :3, 3]  # [C, 3]
+            dirs = params["means"][None, :, :] - cam_pos[:, None, :]
+            adj = apply_appearance(app, params["features"], cam_ids, dirs, sh_degree)
+            colors = torch.sigmoid(adj + params["sh0"][None, :, 0, :])  # [C, N, 3]
+            sh_degree = None
+        else:
+            colors = torch.cat([params["sh0"], params["shN"]], dim=1)
         return rasterization(
             params["means"], params["quats"], torch.exp(params["scales"]), op, colors,
             viewmats, Ks, self.width, self.height, sh_degree=sh_degree,
@@ -274,36 +447,81 @@ class Trainer:
         """The default strategy can ask for AbsGS screen gradients."""
         return isinstance(self.strategy, DefaultStrategy) and self.strategy.absgrad
 
-    def loss_fn(self, params, alive, viewmats, Ks, pixels, sh_degree, offset=None, step=0):
-        """The training loss and the render's meta."""
+    def loss_fn(self, params, alive, viewmats, Ks, pixels, sh_degree, offset=None, step=0,
+                cam_ids=None, addons=None):
+        """The training loss and the render's meta.  `addons` (as
+        `addon_params` gives them) of the training views `cam_ids`: the pose
+        deltas adjust the cameras, the appearance head colours the
+        gaussians, the grids and then PPISP map the raw render, each with its
+        regulariser."""
         cfg = self.cfg
+        addons = addons or {}
+        if "pose" in addons:
+            c2w = apply_pose_deltas(invert_se3(viewmats), addons["pose"][cam_ids])
+            viewmats = invert_se3(c2w)
         colors, _, meta = self.render(params, alive, viewmats, Ks, sh_degree, offset=offset,
-                                      absgrad=self.absgrad)
+                                      absgrad=self.absgrad, app=addons.get("app"),
+                                      cam_ids=cam_ids)
+        if "bil" in addons:
+            colors = torch.stack([bilateral_slice_image(g, im)[0]
+                                  for g, im in zip(addons["bil"][cam_ids], colors)])
+        if "pp" in addons:
+            colors = apply_ppisp(addons["pp"], colors, torch.zeros_like(cam_ids), cam_ids)
         colors = torch.clamp(colors, 0.0, 1.0)
         loss = l1_loss(colors, pixels) * (1.0 - cfg.ssim_lambda)
         loss = loss + ssim_loss(colors, pixels) * cfg.ssim_lambda
+        if "bil" in addons and cfg.tv_reg > 0:
+            loss = loss + cfg.tv_reg * total_variation_loss(addons["bil"])
         if cfg.opacity_reg > 0:
             loss = loss + cfg.opacity_reg * torch.mean(
                 torch.where(alive, torch.sigmoid(params["opacities"]), 0.0))
         if cfg.scale_reg > 0:
             loss = loss + cfg.scale_reg * torch.mean(
                 torch.where(alive[:, None], torch.exp(params["scales"]), 0.0))
+        if "pose" in addons and cfg.pose_opt_reg > 0:
+            loss = loss + cfg.pose_opt_reg * torch.sum(addons["pose"] ** 2)
+        if "app" in addons and cfg.app_opt_reg > 0:
+            loss = loss + cfg.app_opt_reg * torch.sum(addons["app"]["embeds"] ** 2)
+        if "pp" in addons and cfg.ppisp_reg > 0:
+            loss = loss + cfg.ppisp_reg * ppisp_regularization(addons["pp"])
         return loss, meta
 
-    def train_step(self, params, alive, viewmats, Ks, pixels, sh_degree: int, step: int = 0):
+    def train_step(self, params, alive, viewmats, Ks, pixels, sh_degree: int, step: int = 0,
+                   cam_ids=None, addons=None):
         """One forward and backward.  Returns (loss, gradients keyed like
         params, screen-space gradient [C, cap, 2], radii, visibility [cap],
-        isect_overflow)."""
-        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        isect_overflow); `train_step_addons` returns the add-ons' gradients
+        too."""
+        return self.train_step_addons(params, alive, viewmats, Ks, pixels, sh_degree, step=step,
+                                      cam_ids=cam_ids, addons=addons)[:6]
+
+    def train_step_addons(self, params, alive, viewmats, Ks, pixels, sh_degree: int,
+                          step: int = 0, cam_ids=None, addons=None):
+        """`train_step` with the add-ons (`addon_params()` unless given) of
+        the training views `cam_ids` [C]; returns its six values and the
+        add-ons' gradients, keyed as `addons`."""
+        addons = self.addon_params() if addons is None else addons
+        if addons and cam_ids is None:
+            raise ValueError("the add-ons need the training views' cam_ids")
+        leaf = lambda v: v.detach().requires_grad_()
+        leaves = {k: leaf(v) for k, v in params.items()}
+        a_leaves = {name: ({k: leaf(v) for k, v in p.items()} if isinstance(p, dict) else leaf(p))
+                    for name, p in addons.items()}
         offset = torch.zeros((viewmats.shape[0], self.capacity, 2), dtype=torch.float32,
                              device=self.device, requires_grad=True)
+        kw = dict(cam_ids=cam_ids.long(), addons=a_leaves) if a_leaves else {}
         loss, meta = self.loss_fn(leaves, alive, viewmats, Ks, pixels, sh_degree, offset=offset,
-                                  step=step)
+                                  step=step, **kw)
         loss.backward()
-        grads = {k: v.grad for k, v in leaves.items()}
+        # a leaf the loss does not reach (shN under the appearance head) gets zeros
+        grad = lambda v: v.grad if v.grad is not None else torch.zeros_like(v)
+        grads = {k: grad(v) for k, v in leaves.items()}
+        a_grads = {name: ({k: grad(v) for k, v in p.items()} if isinstance(p, dict) else grad(p))
+                   for name, p in a_leaves.items()}
         radii = meta["radii"]
         visibility = (radii > 0).all(dim=-1).any(dim=0) & alive
-        return loss.detach(), grads, offset.grad, radii, visibility, meta["isect_overflow"]
+        return (loss.detach(), grads, offset.grad, radii, visibility, meta["isect_overflow"],
+                a_grads)
 
     def update(self, params, opt_state: AdamState, grads, visibility, lr_scale_means: float):
         """Clip (if configured) and take the selective Adam step, in place."""
@@ -316,6 +534,25 @@ class Trainer:
         lrs_t["means"] = self.lrs["means"] * lr_scale_means
         return selective_adam_update(params, grads, opt_state, lrs_t, visibility=visibility)
 
+    def update_addons(self, grads: Mapping[str, Any]) -> None:
+        """One plain Adam step of each add-on in `grads` (as
+        `train_step_addons` returns them), in place, at the JAX trainer's
+        learning rates."""
+        cfg = self.cfg
+        if "pose" in grads:
+            _, self.pose_opt_state = adam_update({"pose": self.pose_deltas},
+                                                 {"pose": grads["pose"]}, self.pose_opt_state,
+                                                 cfg.pose_opt_lr)
+        if "bil" in grads:
+            _, self.bil_opt_state = adam_update({"bil": self.bil_grids}, {"bil": grads["bil"]},
+                                                self.bil_opt_state, self.bil_lr)
+        if "app" in grads:
+            _, self.app_opt_state = adam_update(self.app_params, grads["app"],
+                                                self.app_opt_state, cfg.app_opt_lr)
+        if "pp" in grads:
+            _, self.ppisp_opt_state = adam_update(self.ppisp_params, grads["pp"],
+                                                  self.ppisp_opt_state, cfg.ppisp_lr)
+
     # ------------------------------------------------------------------- train
 
     def sh_degree_at(self, step: int) -> int:
@@ -324,20 +561,22 @@ class Trainer:
     def run_step(self, step: int, view_ids: np.ndarray, viewmats, Ks, pixels) -> Dict[str, Any]:
         """One whole training step on the views `view_ids` of the train set
         (`viewmats`, `Ks`, `pixels` hold every train view): forward, backward,
-        Adam, then the strategy: the default strategy's statistics, refine and
+        Adam (and the add-ons' Adam), then the strategy: the default strategy's statistics, refine and
         opacity reset, or MCMC's refine and noise.  Updates the model and the
         optimizer state; returns {step, view, sh_degree, refined, reset,
         noised} and `loss` and `overflow` as tensors, which the step does not
         wait for."""
         sh_degree = self.sh_degree_at(step)
         idx = torch.from_numpy(view_ids).to(self.device)
-        loss, grads, g_screen, radii, visibility, overflow = self.train_step(
-            self.params, self.alive, viewmats[idx], Ks[idx], pixels[idx], sh_degree, step=step
+        loss, grads, g_screen, radii, visibility, overflow, addon_grads = self.train_step_addons(
+            self.params, self.alive, viewmats[idx], Ks[idx], pixels[idx], sh_degree, step=step,
+            cam_ids=idx,
         )
         lr_scale = exponential_lr(step, 1.0, self.cfg.max_steps)
         self.params, self.opt_state = self.update(self.params, self.opt_state, grads,
                                                   visibility, lr_scale)
-        del grads
+        self.update_addons(addon_grads)
+        del grads, addon_grads
         moments = (self.opt_state.mu, self.opt_state.nu)
         refined = self.strategy.should_refine(step)
         reset = noised = False
@@ -389,9 +628,15 @@ class Trainer:
         viewmats_all = torch.from_numpy(self.viewmats[self.train_views]).to(dev)
         Ks_all = torch.from_numpy(self.Ks[self.train_views]).to(dev)
         n_train = viewmats_all.shape[0]
+        if self.pose_perturb is not None:
+            # corrupt the training poses (the eval's held-out views stay true)
+            viewmats_all = invert_se3(apply_pose_deltas(invert_se3(viewmats_all),
+                                                        self.pose_perturb))
+        grids = self.bil_grids if cfg.bilateral_grid else None
 
         rng = np.random.default_rng(cfg.seed)
         overflow_steps = 0
+        self.writer = self._open_writer()
         t0 = time.time()
         self._train_t0 = t0  # the eval's ellipse_time counts from here
         for step in range(self.start_step, cfg.max_steps):
@@ -408,18 +653,80 @@ class Trainer:
                           flush=True)
                 print(f"step {step}: loss {float(out['loss']):.4f} n_gs "
                       f"{int(self.alive.sum())} ({time.time() - t0:.0f}s)", flush=True)
+            if self.writer is not None and step % cfg.tb_every == 0:
+                self._log_step(step, out, t0, viewmats_all[idx[:1]], Ks_all[idx[:1]],
+                               targets[idx[:1]])
             if (step + 1) % cfg.eval_every == 0 or step == cfg.max_steps - 1:
                 if heldout is None:  # COLMAP: the training views, as the JAX trainer
-                    self.eval(step, targets, viewmats_all, Ks_all)
+                    self.eval(step, targets, viewmats_all, Ks_all, grids=grids)
                 else:
-                    self.eval(step, targets, viewmats_all, Ks_all, tag="train")
+                    self.eval(step, targets, viewmats_all, Ks_all, tag="train", grids=grids)
                     self.eval(step, *heldout, tag="heldout")
             if (step + 1) % cfg.save_every == 0 or step == cfg.max_steps - 1:
                 self._save(step)
+                # the memory and time snapshot of the JAX trainer's save steps
+                snap = {"mem": (torch.cuda.memory_allocated(self.device) / 1024**3
+                                if self.device.type == "cuda" else 0.0),
+                        "ellipse_time": time.time() - t0, "num_GS": int(self.alive.sum())}
+                with open(os.path.join(self.stats_dir, f"train_step{step:04d}_rank0.json"),
+                          "w") as f:
+                    json.dump(snap, f)
         if overflow_steps:
             print(f"NOTE: {overflow_steps} of the steps checked hit isect-capacity overflow",
                   flush=True)
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
+        if cfg.render_traj:
+            self.render_traj(step=cfg.max_steps - 1)
+        if cfg.compression:
+            self.run_compression(cfg.max_steps - 1)
         return self.params, self.alive
+
+    def _open_writer(self):
+        """TensorBoard's SummaryWriter under result_dir/tb when tb_every > 0
+        and `tensorboard` is installed (else None, with the JAX trainer's
+        note)."""
+        if self.cfg.tb_every <= 0:
+            return None
+        if importlib.util.find_spec("tensorboard") is None:
+            print("tensorboard unavailable; scalar logs go to stats.jsonl only", flush=True)
+            return None
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(log_dir=os.path.join(self.cfg.result_dir, "tb"))
+
+    def _device_mem_gib(self) -> float:
+        """The most device memory this process has held, GiB (0 on the CPU)."""
+        if self.device.type != "cuda":
+            return 0.0
+        return torch.cuda.max_memory_allocated(self.device) / 1024**3
+
+    @torch.no_grad()
+    def _log_step(self, step: int, out: Mapping[str, Any], t0: float, vm, K, pixels) -> None:
+        """The step's TensorBoard scalars, and with tb_save_image the target
+        | render canvas of the batch's first view (the updated model, the
+        raw render)."""
+        w = self.writer
+        w.add_scalar("train/loss", float(out["loss"]), step)
+        w.add_scalar("train/num_GS", int(self.alive.sum()), step)
+        w.add_scalar("train/mem", self._device_mem_gib(), step)
+        w.add_scalar("train/steps_per_sec",
+                     (step - self.start_step + 1) / max(time.time() - t0, 1e-9), step)
+        if self.cfg.tb_save_image:
+            colors, _, _ = self.render(self.params, self.alive, vm, K, out["sh_degree"],
+                                       app=self.app_params, cam_ids=None)
+            canvas = torch.cat([pixels[0], colors[0]], dim=1)
+            # scaled as add_image scales floats, but encoded by the port's own
+            # PNG writer: add_image needs PIL
+            img = (torch.clamp(canvas, 0, 1) * 255.0).to(torch.uint8).cpu().numpy()
+            from torch.utils.tensorboard.summary import Summary
+
+            image = Summary.Image(height=img.shape[0], width=img.shape[1], colorspace=3,
+                                  encoded_image_string=encode_png(img, level=1))
+            w._get_file_writer().add_summary(
+                Summary(value=[Summary.Value(tag="train/render", image=image)]), step)
+        w.flush()
 
     def target_splats(self) -> Tuple[torch.Tensor, ...]:
         """(means, quats, scales, opacities, colors) of the full point cloud
@@ -458,23 +765,29 @@ class Trainer:
         return torch.cat(outs, dim=0)
 
     @torch.no_grad()
-    def eval(self, step: int, targets, viewmats, Ks, tag: str = "eval") -> Tuple[float, float]:
+    def eval(self, step: int, targets, viewmats, Ks, tag: str = "eval",
+             grids=None) -> Tuple[float, float]:
         """PSNR, SSIM, LPIPS (None without weights) and the LPIPS proxy of
         the current model over the given views, with the live gaussians,
         the device memory and the time since training started; written to
-        `stats.jsonl` and `stats/{tag}_step{step:04d}.json`.  Returns
-        (psnr, ssim)."""
+        `stats.jsonl`, `stats/{tag}_step{step:04d}.json` and TensorBoard.
+        The appearance head takes the zero embedding; `grids`, one per view
+        (the training views'), correct the renders.  Returns (psnr, ssim)."""
         sh_degree = self.sh_degree_at(step)
         chunk = max(self.cfg.batch_size, 1)
         outs = []
         for i in range(0, len(viewmats), chunk):
             c, _, meta = self.render(self.params, self.alive, viewmats[i : i + chunk],
-                                     Ks[i : i + chunk], sh_degree)
+                                     Ks[i : i + chunk], sh_degree, app=self.app_params,
+                                     cam_ids=None)
             if bool(meta["isect_overflow"]):
                 print(f"WARNING eval[{tag}] @{step}: isect overflow in views "
                       f"[{i},{i + chunk}): metrics underestimate", flush=True)
             outs.append(c)
-        colors = torch.clamp(torch.cat(outs, dim=0), 0.0, 1.0)
+        colors = torch.cat(outs, dim=0)
+        if grids is not None:
+            colors = torch.stack([bilateral_slice_image(g, im)[0] for g, im in zip(grids, colors)])
+        colors = torch.clamp(colors, 0.0, 1.0)
         mse = torch.mean((colors - targets) ** 2)
         psnr = float(-10.0 * torch.log10(torch.clamp(mse, min=1e-12)))
         s = float(ssim(colors, targets))
@@ -501,20 +814,94 @@ class Trainer:
             f.write(json.dumps(stats) + "\n")
         with open(os.path.join(self.stats_dir, f"{tag}_step{step:04d}.json"), "w") as f:
             json.dump(stats, f)
+        if self.writer is not None:
+            self.writer.add_scalar(f"{tag}/psnr", psnr, step)
+            self.writer.add_scalar(f"{tag}/ssim", s, step)
+            self.writer.add_scalar(f"{tag}/lpips_proxy", lp_proxy, step)
+            if lp is not None:
+                self.writer.add_scalar(f"{tag}/lpips", lp, step)
+            self.writer.flush()
         return psnr, s
+
+    @torch.no_grad()
+    def render_traj(self, step: Optional[int] = None) -> None:
+        """A fly-through of the model along `render_traj_path` through the
+        training cameras (`raw`: the cameras; `interp`: a B-spline,
+        traj_frames // (cameras - 1) frames a segment; `ellipse`: an orbit at
+        the cameras' mean height; `spiral`: bounds from the 0.5 and 99.5
+        percentiles of the initial points' distances to the cameras),
+        intrinsics of the first camera, written as `traj/NNNN.png` and, where
+        imageio and its ffmpeg plugin are installed, `traj.mp4`."""
+        cfg = self.cfg
+        c2w = invert_se3(torch.from_numpy(self.viewmats)).numpy()[:, :3, :]
+        kind = cfg.render_traj_path
+        if kind == "raw":
+            path = c2w
+        elif kind == "interp":
+            path = generate_interpolated_path(c2w, max(cfg.traj_frames // max(len(c2w) - 1, 1),
+                                                       1))
+        elif kind == "ellipse":
+            path = generate_ellipse_path_z(c2w, n_frames=cfg.traj_frames,
+                                           height=float(c2w[:, 2, 3].mean()))
+        elif kind == "spiral":
+            cams = c2w[:, :3, 3]
+            d = np.linalg.norm(self._points_np[None, :, :] - cams[:, None, :], axis=-1)
+            bounds = np.array([np.percentile(d, 0.5), np.percentile(d, 99.5)])
+            path = generate_spiral_path(c2w, bounds=bounds, n_frames=cfg.traj_frames)
+        else:
+            raise ValueError(f"unknown render_traj_path: {kind}")
+        bottom = np.tile(np.array([[[0.0, 0, 0, 1.0]]], np.float32), (len(path), 1, 1))
+        vm = invert_se3(torch.from_numpy(np.concatenate([path.astype(np.float32), bottom],
+                                                        axis=1))).to(self.device)
+        K = torch.from_numpy(self.Ks[:1]).to(self.device)
+        sh_degree = self.sh_degree_at(step) if step is not None else cfg.sh_degree
+        outdir = os.path.join(cfg.result_dir, "traj")
+        os.makedirs(outdir, exist_ok=True)
+        frames = []
+        for i in range(len(path)):
+            colors, _, _ = self.render(self.params, self.alive, vm[i : i + 1], K, sh_degree,
+                                       app=self.app_params, cam_ids=None)
+            img = (torch.clamp(colors[0], 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+            with open(os.path.join(outdir, f"{i:04d}.png"), "wb") as f:
+                f.write(encode_png(img))
+            frames.append(img)
+        if importlib.util.find_spec("imageio") and importlib.util.find_spec("imageio_ffmpeg"):
+            import imageio
+
+            imageio.mimwrite(os.path.join(cfg.result_dir, "traj.mp4"), frames, fps=30)
+        else:
+            print("traj video skipped (imageio with its ffmpeg plugin is not installed)",
+                  flush=True)
+        print(f"wrote {len(frames)} traj frames to {outdir}", flush=True)
+
+    def run_compression(self, step: int) -> Dict[str, float]:
+        """PngCompression of the live gaussians into result_dir/compression,
+        on the trainer's device; prints the bytes and returns the seconds of
+        each part (PngCompression.compress)."""
+        keep = self.alive
+        splats = {k: self.params[k][keep].detach().cpu().numpy()
+                  for k in ("means", "scales", "quats", "opacities", "sh0", "shN")}
+        splats["opacities"] = splats["opacities"].reshape(-1)
+        cdir = os.path.join(self.cfg.result_dir, "compression")
+        seconds = PngCompression(device=self.device).compress(cdir, splats)
+        total = sum(os.path.getsize(os.path.join(cdir, f)) for f in os.listdir(cdir))
+        print(f"compressed splats -> {cdir} ({total / 1e6:.2f} MB)", flush=True)
+        return seconds
 
     # -------------------------------------------------------------- checkpoint
 
     def _save(self, step: int) -> str:
         """Full-state checkpoint in the JAX trainer's layout, the strategy's
-        state included.  `key` and `pose_deltas` are written only so that its
-        loader accepts the file; this trainer keeps neither."""
+        state and the add-ons (pose deltas, grids, the appearance head and
+        PPISP with their Adam moments) included.  `key` is written only so
+        that its loader accepts the file; this trainer keeps none."""
         out = os.path.join(self.cfg.result_dir, f"ckpt_{step}.npz")
         flat = train_state_to_numpy(self.params, self.alive, self.opt_state,
                                     self.strategy_state)
         flat["step"] = np.asarray(step)
         flat["key"] = np.array([0, self.cfg.seed & 0xFFFFFFFF], np.uint32)
-        flat["pose_deltas"] = np.zeros((len(self.train_views), 9), np.float32)
+        flat.update(addons_to_numpy(self.pose_deltas, self.bil_grids, self.app_params,
+                                    self.app_opt_state, self.ppisp_params, self.ppisp_opt_state))
         np.savez(out, **flat)
         print(f"saved {out}", flush=True)
         if self.cfg.save_ply:  # the live gaussians, as the JAX trainer exports them
@@ -539,6 +926,18 @@ class Trainer:
         for k in self.strategy_state:
             if k in state.strategy_state:
                 self.strategy_state[k] = state.strategy_state[k]
+        # the add-ons the file holds; the pose and grid Adam states start anew
+        addons = addons_from_numpy(flat, device=self.device)
+        if "pose_deltas" in addons:
+            self.pose_deltas = addons["pose_deltas"]
+            self.pose_opt_state = adam_init({"pose": self.pose_deltas})
+        if "bil_grids" in addons:
+            self.bil_grids = addons["bil_grids"]
+            self.bil_opt_state = adam_init({"bil": self.bil_grids})
+        if "app" in addons:
+            self.app_params, self.app_opt_state = addons["app"]
+        if "ppisp" in addons:
+            self.ppisp_params, self.ppisp_opt_state = addons["ppisp"]
         self.start_step = int(flat["step"]) + 1
         print(f"resumed from {path} at step {self.start_step}", flush=True)
 

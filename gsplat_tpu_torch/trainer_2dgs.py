@@ -21,18 +21,29 @@ the image.  Their gradients are zero in both.
 
 The surfel composite has no packed mode: `Config.pack_payload` and
 `pack_grads`, inherited from the 3DGS config, are not read here.
+
+The step takes none of the 3DGS trainer's add-ons: the JAX 2DGS runner's
+loss (`examples/simple_trainer_2dgs.py:87-123`) renders the given cameras
+with the SH colours and nothing after the render, and returns no add-on
+gradient.  So `pose_opt`, `app_opt`, `bilateral_grid` and `ppisp` raise a
+ValueError here.  What acts outside the step is inherited: `pose_noise`,
+`render_traj`, `compression` and TensorBoard.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 
+from ._device import DeviceLike
 from .losses import l1_loss, normal_cosine_loss, ssim_loss
 from .rendering import rasterization_2dgs
 from .trainer import Config, Trainer
+
+# the 3DGS step's add-ons, which the surfel step does not take
+ADDONS = ("pose_opt", "app_opt", "bilateral_grid", "ppisp")
 
 
 @dataclasses.dataclass
@@ -48,11 +59,21 @@ class Trainer2DGS(Trainer):
 
     strategy_scale_axes: Tuple[int, ...] = (0, 1)
 
-    def render(self, params, alive, viewmats, Ks, sh_degree, offset=None):
+    def __init__(self, cfg: Config, data: Optional[Mapping[str, Any]] = None,
+                 device: DeviceLike = None):
+        on = [name for name in ADDONS if getattr(cfg, name)]
+        if on:
+            raise ValueError(f"the 2DGS trainer takes none of the add-ons {on}, as the JAX "
+                             "2DGS runner's step")
+        super().__init__(cfg, data=data, device=device)
+
+    def render(self, params, alive, viewmats, Ks, sh_degree, offset=None, app=None,
+               cam_ids=None):
         """RGB renders [C, H, W, 3], alphas and meta of the alive rows;
         meta["radii"] covers every row (0 where not alive) and meta["_2dgs"]
         holds the world-frame normals, the normals from depth and the
-        distortion."""
+        distortion.  `app` and `cam_ids` are the 3DGS render's arguments,
+        always None here (no add-on)."""
         idx = torch.nonzero(alive)[:, 0]
         take = lambda k: params[k].index_select(0, idx)
         render, alphas, normals, nfd, distort, _, meta = rasterization_2dgs(

@@ -1,6 +1,5 @@
 """The port's public surface against the JAX package's: the top-level
-export list is the JAX one but for PngCompression (a TPU-side codec the
-port has not taken yet), the ops lists are equal, every exported name
+export lists are equal (PngCompression included), the ops lists are equal, every exported name
 resolves, the seven feature probes return True, and the port-rules scan
 covers every module of the package."""
 
@@ -18,7 +17,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def test_top_level_exports_all_but_png_compression():
-    assert set(gsplat_tpu.__all__) - set(gsplat_tpu_torch.__all__) == {"PngCompression"}
+    """The name is kept from when PngCompression was missing; the lists are
+    equal now."""
+    assert set(gsplat_tpu.__all__) == set(gsplat_tpu_torch.__all__)
+    assert len(gsplat_tpu_torch.__all__) == len(set(gsplat_tpu_torch.__all__))
 
 
 def test_ops_export_lists_are_equal():
@@ -50,5 +52,7 @@ def test_port_rules_scan_every_new_module():
     scanned = {p.resolve() for p in PORT_FILES}
     for rel in ("ops/isect.py", "ops/contributing.py", "ops/rasterize_sparse.py",
                 "ops/rasterize_ref.py", "ops/rasterize2d_ref.py", "ops/rasterize_eval3d_ref.py",
-                "ops/projection_packed.py", "geometry/functional.py", "color_correct.py"):
+                "ops/projection_packed.py", "geometry/functional.py", "color_correct.py",
+                "training/pose.py", "training/bilateral_grid.py", "training/ppisp.py",
+                "datasets/traj.py", "compression/plas.py", "compression/png_compression.py"):
         assert (ROOT / "gsplat_tpu_torch" / rel).resolve() in scanned, rel
