@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main paths, serving, the analysis ops, 3DGS
-training, 2DGS training, the 3DGUT render and the AV trainer, on one NVIDIA
-card and hold each CUDA kernel against its plain PyTorch version.
+training, 2DGS training, the 3DGUT render, the AV trainer, COLMAP training,
+the viewer and the profiler, on one NVIDIA card and hold each CUDA kernel
+against its plain PyTorch version.
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -206,6 +207,23 @@ Phases:
      or where it is not installed the trainer's note.  Last, 3 more steps
      timed with TensorBoard closed, and 3 traced (device time by kernel,
      idle share).
+ 18. the viewer, the native reader, profiling and tracing: GsplatViewer
+     on port 0 over the grid scene (2,794,625 gaussians, make_render_fn,
+     the exact path) answers /info, then per mode (rgb, depth(expected),
+     depth(accumulated), alpha) a /state and a /render at 1920x1080 over
+     HTTP (launch counts set to 0 just before the four frames, read just
+     after: K3, K4 and K1 > 0); each PNG decodes to the frame make_render_fn
+     and the viewer's postprocess give in-process, byte for byte (render,
+     postprocess, encode and round-trip ms printed).  Phase 16's binary
+     model read by io_native (g++, built here) and by the plain readers:
+     equal arrays, both times printed.  The COLMAP trainer with the live
+     viewer (disable_viewer=False, port 0) for 3 steps serves a frame after
+     step 1, then a pause holds the loop 0.5 s until a resume; one more
+     step traced by torch.profiler inside trace_range / trace_push must show
+     both names.  run_workload's presets 3dgs, 2dgs and 3dgut at
+     scene_grid 1, res_factor 2 (fwd_ms, step_ms); one rasterization call
+     captured and replayed by ProfileWorkload, bit for bit, timed forward
+     and with its gradient, its trace holding K3's, K4's and K1's kernels.
 It prints one `kernels` JSON line (14 kernels, each with its launches on
 every path and `launches` on its own: MAIN_PATH; K1's records also carry
 `exp_bound_ms`, one exp per evaluated pair on the special-function units;
@@ -229,7 +247,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -258,7 +278,19 @@ from gsplat_tpu_torch.ops.isect import isect_offset_encode, isect_tiles
 from gsplat_tpu_torch.ops.projection import fully_fused_projection
 from gsplat_tpu_torch.ops.sh import spherical_harmonics
 from gsplat_tpu_torch.rendering import _campos_from_viewmats
-from gsplat_tpu_torch.datasets import Parser, decode_png, encode_png, write_model_binary
+from gsplat_tpu_torch import io_native
+from gsplat_tpu_torch.datasets import colmap as colmap_mod
+from gsplat_tpu_torch.datasets import (Parser, decode_png, decode_png_channels, encode_png,
+                                       write_model_binary)
+from gsplat_tpu_torch.profile import (ProfileWorkload, compiled_hlo_contains, run_workload,
+                                      save_inputs)
+from gsplat_tpu_torch.utils import synthetic_test_data, trace_pop, trace_push, trace_range
+# an orbit of look-at cameras around the scene's median, as
+# examples/sample_inference.py:orbit_cameras places them
+from gsplat_tpu_torch.utils.data import orbit_cameras as look_at_cameras
+from gsplat_tpu_torch.viewer import (RENDER_MODES, CameraState, GsplatViewer, RenderTabState,
+                                     make_render_fn)
+from gsplat_tpu_torch.viewer.core import PNG_LEVEL, to_frame
 from gsplat_tpu_torch.scene import (
     GaussianInferenceScene,
     Stage,
@@ -500,29 +532,6 @@ def make_splats(n_cell: int, grid: int, seed: int):
         "sh0": ((colors - 0.5) / SH_C0)[:, None, :],
         "shN": (rng.standard_normal((N, 15, 3)) * 0.05).astype(np.float32),
     }
-
-
-def look_at_cameras(means: np.ndarray, n_views: int, W: int, H: int, fov_deg: float = 60.0):
-    """An orbit of look-at cameras around the scene's median, as
-    examples/sample_inference.py:orbit_cameras places them."""
-    center = np.median(means, axis=0)
-    radius = 1.5 * float(np.percentile(np.linalg.norm(means - center, axis=1), 70))
-    f = 0.5 * W / math.tan(math.radians(fov_deg) / 2)
-    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
-    views = []
-    for i in range(n_views):
-        a = 2 * math.pi * i / n_views
-        eye = center + np.array([radius * math.cos(a), radius * math.sin(a), -0.3 * radius])
-        fwd = (center - eye) / np.linalg.norm(center - eye)
-        right = np.cross(fwd, [0.0, 0.0, -1.0])
-        right /= np.linalg.norm(right)
-        down = np.cross(fwd, right)
-        R = np.stack([right, down, fwd])
-        w2c = np.eye(4, dtype=np.float32)
-        w2c[:3, :3] = R
-        w2c[:3, 3] = -R @ eye
-        views.append(w2c)
-    return np.stack(views), K
 
 
 def scaled_K(K: np.ndarray, s: float) -> np.ndarray:
@@ -2114,8 +2123,10 @@ def av_phase(dev, timer, log):
     n, steps = AV_N, AV_STEPS
     t0 = time.perf_counter()
     scene = street_scene(dev)
-    runner = av_mod.AVRunner(av_mod.Config(max_steps=steps, cap_max=n, seed=SEED), scene,
-                             device=dev)
+    result_dir = tempfile.mkdtemp(prefix="chip_smoke_av_")
+    runner = av_mod.AVRunner(av_mod.Config(max_steps=steps, cap_max=n, seed=SEED,
+                                           result_dir=result_dir), scene, device=dev)
+    shutil.rmtree(result_dir)  # the runner writes nothing there
     # The runner's own initial scale is 0.3x the distance to a random other
     # point: at 1M points the scene's size, every gaussian a third of the
     # view.  Here each starts at the points' spacing on the wall and ground.
@@ -2391,8 +2402,8 @@ def colmap_phase(dev, raw, n_cell: int, grid: int, wh, log):
     views and writes the live gaussians as a .ply, which load_checkpoint
     reads back and render_scene serves: bit for bit the image of the
     trainer's own live parameters.  Then phase 17 (addons_phase) on the same
-    scene, before it is removed.  Returns the launch counts of the two
-    train() calls."""
+    scene, and phase 18 (tools_phase), before it is removed.  Returns the
+    launch counts of the two train() calls and of the viewer's frames."""
     W, H = wh
     tmp = tempfile.mkdtemp(prefix="chip_smoke_colmap_")
     names, pts = write_colmap_scene(dev, raw, n_cell, grid, wh, tmp, log)
@@ -2472,10 +2483,13 @@ def colmap_phase(dev, raw, n_cell: int, grid: int, wh, log):
     del tr, targets, images, scene, g, live, recorder
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    # Phase 17 on the same written scene, before it is removed.
+    # Phase 17 on the same written scene, then phase 18, before it is removed.
     addon_launches = addons_phase(dev, tmp, wh, plain_ms, plain_shn, log)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    viewer_launches = tools_phase(dev, raw, tmp, log)
     shutil.rmtree(tmp)
-    return launches, addon_launches
+    return launches, addon_launches, viewer_launches
 
 
 ADDON_STEPS = 6
@@ -3132,6 +3146,260 @@ def analysis_phase(dev, scene, vm, K, wh, cap: int, log):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the viewer, the native COLMAP reader, profiling and tracing
+# ---------------------------------------------------------------------------
+
+VIEWER_WH = (1920, 1080)
+VIEWER_MODES = ("rgb", "depth(expected)", "depth(accumulated)", "alpha")
+LIVE_STEPS = 3
+PAUSE_S = 0.5
+PROFILE_REPEATS = 3
+EARLIER_PLAIN_PARSE_S = 0.338  # phase 16's Parser on the plain readers (PR 13, PERF.md)
+
+
+def http_get(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+        return r.headers["Content-Type"], r.read()
+
+
+def http_post(port: int, path: str, payload: dict):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(payload).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.headers["Content-Type"], r.read()
+
+
+def render_request(c2w: np.ndarray, K: np.ndarray, wh) -> dict:
+    """A /render body for camera-to-world c2w with K's vertical field of view."""
+    W, H = wh
+    fov = 2.0 * math.atan(0.5 * H / float(K[1, 1]))
+    return {"c2w": np.asarray(c2w, np.float64).ravel().tolist(), "fov": fov, "width": W,
+            "height": H}
+
+
+def viewer_part(dev, raw, log) -> dict:
+    """The grid scene behind GsplatViewer on port 0: /info, then per mode a
+    /state and a /render at VIEWER_WH over HTTP (counts set to 0 just
+    before the four frames, read just after: K3, K4, K1 > 0); each PNG
+    decodes to the frame that make_render_fn and the viewer's postprocess
+    give in-process, byte for byte.  Returns the frames' launch counts."""
+    W, H = VIEWER_WH
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+    N = len(raw["means"])
+    scene = {"means": t(raw["means"]), "quats": t(raw["quats"]),
+             "scales": torch.exp(t(raw["scales"])), "opacities": torch.sigmoid(t(raw["opacities"])),
+             "colors": torch.cat([t(raw["sh0"]), t(raw["shN"])], dim=1), "sh_degree": 3,
+             "n_rendered": N}
+    vm, K = look_at_cameras(raw["means"], 1, W, H)
+    cap = 4 * N  # rasterization()'s own default
+    render_fn = make_render_fn(lambda: scene, isect_capacity=cap)
+    viewer = GsplatViewer(render_fn, mode="rendering", port=0,
+                          state=RenderTabState(total_gs_count=N, max_sh_degree=3))
+    ctype, body = http_get(viewer.port, "/info")
+    info = json.loads(body)
+    require(ctype == "application/json" and info["total_gs_count"] == N
+            and info["render_modes"] == list(RENDER_MODES),
+            f"viewer /info: {info}")
+    req = render_request(np.linalg.inv(vm[0]), K, (W, H))
+    http_post(viewer.port, "/render", req)  # the first frame at this size: warm-up
+    pngs = {}
+    reset_launches()
+    for mode in VIEWER_MODES:
+        http_post(viewer.port, "/state", {"render_mode": mode})
+        require(viewer.state.render_mode == mode, f"viewer /state did not set {mode}")
+        t0 = time.perf_counter()
+        ctype, png = http_post(viewer.port, "/render", req)
+        pngs[mode] = (png, (time.perf_counter() - t0) * 1e3)
+        require(ctype == "image/png", f"viewer /render answered {ctype}")
+    launches = read_launches()
+    log("viewer launches " + json.dumps(launches))
+    for name in EXACT_RENDER_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched by the viewer's frames")
+    cam = CameraState(c2w=np.asarray(req["c2w"], np.float32).reshape(4, 4), fov=req["fov"],
+                      aspect=W / H)
+    for mode in VIEWER_MODES:
+        viewer.state.render_mode = mode
+        out, render_ms = timed(dev, lambda: render_fn(cam, viewer.state, (W, H)))
+        t0 = time.perf_counter()
+        frame = to_frame(viewer._postprocess(out) if isinstance(out, dict) else out)
+        post_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        encoded = encode_png(frame, level=PNG_LEVEL)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        png, round_trip_ms = pngs[mode]
+        got = decode_png_channels(png)
+        require(got.shape == frame.shape == (H - H % 16, W, 3) and np.array_equal(got, frame),
+                f"viewer {mode}: the HTTP frame differs from the in-process frame")
+        require(int(frame.max()) > 0 and len(set(frame[::16, ::16].ravel().tolist())) > 1,
+                f"viewer {mode}: a flat frame")
+        log(json.dumps({"viewer_frame": mode, "wh": [W, H - H % 16], "render_ms": render_ms,
+                        "postprocess_ms": post_ms, "encode_ms": encode_ms,
+                        "round_trip_ms": round_trip_ms, "png_bytes": len(png),
+                        "png_bytes_in_process": len(encoded)}))
+    with torch.no_grad():
+        _, _, meta = rasterization(
+            scene["means"], scene["quats"], scene["scales"], scene["opacities"],
+            scene["colors"], t(vm), t(K[None]), W, H - H % 16, sh_degree=3,
+            render_mode="RGB+ED", isect_capacity=cap)
+    require(not bool(meta["isect_overflow"]), "viewer frames overflow their capacity")
+    log(f"viewer: {N} gaussians, {int(meta['n_isects'])} intersections at {W}x{H - H % 16}, "
+        f"4 frames over HTTP equal to the in-process ones")
+    viewer.close()
+    return launches
+
+
+def live_training_part(dev, data_dir: str, log) -> None:
+    """The COLMAP trainer with the live viewer (disable_viewer=False, port
+    0) for LIVE_STEPS steps: after step 1 a frame of the step-0 snapshot
+    over HTTP, then a pause that holds the loop PAUSE_S until a resume.
+    Then one more step traced by torch.profiler inside trace_range and
+    trace_push/trace_pop, whose names the trace must hold."""
+    W, H = VIEWER_WH
+    cfg = trainer_mod.Config(
+        data="colmap", data_dir=data_dir, factor=1,
+        result_dir=os.path.join(data_dir, "result_viewer"), max_steps=LIVE_STEPS,
+        eval_every=1000, save_every=1000, tb_every=0, fixed_batch=True, seed=SEED,
+        disable_viewer=False, viewer_port=0)
+    tr = trainer_mod.Trainer(cfg, device=dev)
+    size_training_capacities(tr, log)
+    req = render_request(tr.parser.camtoworlds[0], tr.Ks[0], (W, H))
+    run_step, seen = tr.run_step, {}
+
+    def recording_step(step, *a):
+        out = run_step(step, *a)
+        sync(dev)
+        seen[step] = time.perf_counter()
+        seen["args"] = a
+        if step == 1:
+            t0 = time.perf_counter()
+            ctype, png = http_post(tr.viewer.port, "/render", req)
+            seen["frame"] = (decode_png_channels(png), (time.perf_counter() - t0) * 1e3)
+            http_post(tr.viewer.port, "/state", {"paused": True})
+            seen["paused_at"] = time.perf_counter()
+
+            def resume():
+                time.sleep(PAUSE_S)
+                seen["last_step_while_paused"] = max(k for k in seen if isinstance(k, int))
+                http_post(tr.viewer.port, "/state", {"paused": False})
+                seen["resumed_at"] = time.perf_counter()
+
+            seen["resume"] = threading.Thread(target=resume)
+            seen["resume"].start()
+        return out
+
+    tr.run_step = recording_step
+    tr.train()
+    seen["resume"].join()
+    tr.run_step = run_step
+    frame, frame_ms = seen["frame"]
+    require(frame.shape == (H - H % 16, W, 3) and int(frame.max()) > 0,
+            f"live viewer frame {frame.shape}")
+    require(seen["last_step_while_paused"] == 1 and seen[2] - seen["paused_at"] >= PAUSE_S,
+            "the live viewer's pause did not hold the training loop")
+    v = tr.viewer
+    require(v.mode == "rendering" and v.step == LIVE_STEPS - 1 and not v.state.paused,
+            f"live viewer after training: mode {v.mode}, step {v.step}")
+    log(json.dumps({"live_viewer_frame_ms": frame_ms,
+                    "paused_s": seen["resumed_at"] - seen["paused_at"],
+                    "pause_to_step_2_s": seen[2] - seen["paused_at"], "steps": LIVE_STEPS}))
+
+    # one more step, traced, inside named ranges
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        with trace_range("chip_smoke.train_step"):
+            trace_push("chip_smoke.run_step")
+            tr.run_step(LIVE_STEPS, *seen["args"])
+            trace_pop()
+        sync(dev)
+    names = {e.name for e in prof.events()}
+    require({"chip_smoke.train_step", "chip_smoke.run_step"} <= names,
+            "the trace of a training step lacks its trace_range names")
+    n_kernels = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    log(f"trace of one training step: the two trace ranges and {n_kernels} kernels")
+    v.close()
+
+
+def native_reader_part(data_dir: str, log) -> None:
+    """Phase 16's binary model read by io_native and by the plain readers:
+    equal records and arrays; both times beside the earlier plain parse."""
+    sparse = os.path.join(data_dir, "sparse", "0")
+    t0 = time.perf_counter()
+    io_native.native_available()
+    build_s = time.perf_counter() - t0
+    reads = {}
+    for what, mod in (("native", io_native), ("plain", colmap_mod)):
+        t0 = time.perf_counter()
+        cams = mod.read_cameras_binary(os.path.join(sparse, "cameras.bin"))
+        images = mod.read_images_binary(os.path.join(sparse, "images.bin"))
+        points = mod.read_points3d_binary(os.path.join(sparse, "points3D.bin"))
+        reads[what] = (time.perf_counter() - t0, cams, images, points)
+    (native_s, *native), (plain_s, *plain) = reads["native"], reads["plain"]
+    for a, b in zip(native[:2], plain[:2]):
+        require(a.keys() == b.keys() and all(
+            a[k].keys() == b[k].keys() and all(np.array_equal(a[k][f], b[k][f]) for f in a[k])
+            for k in a), "io_native's cameras or images differ from the plain readers'")
+    require(all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(native[2], plain[2])),
+            "io_native's points differ from the plain readers'")
+    t0 = time.perf_counter()
+    Parser(data_dir, factor=1, normalize=True, test_every=8)
+    parser_s = time.perf_counter() - t0
+    log(json.dumps({"native_reader": {"build_s": build_s, "native_read_s": native_s,
+                                      "plain_read_s": plain_s, "parser_s": parser_s,
+                                      "points": len(native[2][0]),
+                                      "earlier_plain_parse_s": EARLIER_PLAIN_PARSE_S}}))
+
+
+def profile_part(dev, tmp: str, log) -> None:
+    """run_workload for each preset at scene_grid 1, res_factor 2; one
+    rasterization call captured, replayed by ProfileWorkload (the same
+    image, bit for bit; forward and gradient timed) and its trace holding
+    K3's, K4's and K1's kernels."""
+    for name in ("3dgs", "2dgs", "3dgut"):
+        res = run_workload(name, scene_grid=1, res_factor=2, repeats=PROFILE_REPEATS, device=dev)
+        require(all(math.isfinite(v) and v > 0 for v in res.values()), f"{name}: {res}")
+        log(json.dumps({"profile_workload": name, "scene_grid": 1, "res_factor": 2, **res}))
+    means, quats, scales, opac, colors, viewmats, Ks, W, H = synthetic_test_data(
+        n_views=1, width=VIEWER_WH[0], height=VIEWER_WH[1])
+    t = lambda x: torch.from_numpy(x).to(dev)
+    args = (t(means), t(quats), t(scales), t(opac), t(colors), t(viewmats), t(Ks), W, H)
+    kwargs = dict(render_mode="RGB+ED", isect_capacity=4 * len(means))
+    with torch.no_grad():
+        want = rasterization(*args, **kwargs)[0]
+    path = os.path.join(tmp, "rasterization.capture")
+    save_inputs(path, args, kwargs)
+    wl = ProfileWorkload(rasterization, path, warmup=1, repeats=PROFILE_REPEATS, device=dev)
+    a, k = wl.load()
+    with torch.no_grad():
+        got = rasterization(*a, **k)[0]
+    require(torch.equal(got, want), "the replayed rasterization differs from the captured call")
+    fwd, grad = wl.run(), wl.run(grad_argnums=(0, 4))
+    kernels = ["expand_rows_kernel", "expand_emission_kernel", "rasterize_fwd_kernel"]
+    require(compiled_hlo_contains(rasterization, kernels, *a, **k),
+            f"the trace of the replayed call lacks one of {kernels}")
+    log(json.dumps({"profile_replay": {"fwd_ms": fwd["time_s"] * 1e3,
+                                       "fwd_and_grad_ms": grad["time_s"] * 1e3,
+                                       "kernels_found": kernels}}))
+
+
+def tools_phase(dev, raw, data_dir: str, log) -> dict:
+    """Phase 18: the viewer on the grid scene, the live viewer and a traced
+    training step on phase 16's COLMAP scene, the native reader on its
+    model, and the profile presets and a capture's replay.  Returns the
+    viewer frames' launch counts."""
+    t0 = time.perf_counter()
+    launches = viewer_part(dev, raw, log)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    native_reader_part(data_dir, log)
+    live_training_part(dev, data_dir, log)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    profile_part(dev, data_dir, log)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, log=print,
         train_steps: int = TRAIN_STEPS):
     """All phases on `dev`; returns the serving records, the training
@@ -3298,30 +3566,38 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
 
     # The analysis surface on the serving scene: the classic pipeline, the
     # oracle, the contributing ops, sparse rasterization, the index lists.
+    log(f"elapsed: serving and kernel phases done at {time.perf_counter() - t0:.1f} s")
     analysis_launches = analysis_phase(dev, scene, viewmats[0], K, (W, H), cap, log)
     del sv, scene
+    log(f"elapsed: analysis done at {time.perf_counter() - t0:.1f} s")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
     # Training: the same points and colours through the trainer.
     history, train_launches, train_records = training_phases(
         dev, raw, viewmats, K, (W, H), check_wh, n_cell, train_steps, err, timer, log)
+    log(f"elapsed: 3DGS training done at {time.perf_counter() - t0:.1f} s")
 
     # 2DGS training: the same points and colours through the surfel trainer.
     surfel_history, surfel_launches, surfel_records = surfel_phases(
         dev, raw, viewmats, K, (W, H), timer, log)
+    log(f"elapsed: 2DGS done at {time.perf_counter() - t0:.1f} s")
 
     # 3DGUT: the same scene through a distorted pinhole, evaluated along rays.
     gut_launches, gut_records, gut_k9 = gut_phases(dev, raw, viewmats, K, (W, H), timer, log)
+    log(f"elapsed: 3DGUT done at {time.perf_counter() - t0:.1f} s")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     # The AV trainer: cameras and a spinning lidar on a street scene.
     av_launches, av_records, av_k9, av_k2, av_k1 = av_phase(dev, timer, log)
+    log(f"elapsed: AV done at {time.perf_counter() - t0:.1f} s")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     # Training from a COLMAP scene, with the eval and the .ply served again;
     # then the same scene with every add-on of the trainer.
-    colmap_launches, addon_launches = colmap_phase(dev, raw, n_cell, grid, (W, H), log)
+    colmap_launches, addon_launches, viewer_launches = colmap_phase(dev, raw, n_cell, grid,
+                                                                     (W, H), log)
+    log(f"elapsed: phases 16 to 18 done at {time.perf_counter() - t0:.1f} s")
     for rec, av_rec in zip(gut_records, av_records):
         rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
         rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3356,7 +3632,7 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     paths = {"serving": launches, "serving_exact": exact_launches, "training": train_launches,
              "2dgs": surfel_launches, "3dgut": gut_launches, "av": av_launches,
              "colmap": colmap_launches, "addons": addon_launches,
-             "analysis": analysis_launches}
+             "analysis": analysis_launches, "viewer": viewer_launches}
     for rec in records:
         rec["launches_by_path"] = {p: counts[rec["name"]] for p, counts in paths.items()}
         rec["launches"] = rec["launches_by_path"][MAIN_PATH[rec["name"]]]

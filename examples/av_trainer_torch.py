@@ -21,11 +21,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", default="synthetic", help="synthetic (ncore is not ported)")
     ap.add_argument("--max-steps", type=int, default=500)
+    ap.add_argument("--result-dir", default="/tmp/av_trainer")
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
     args = ap.parse_args()
     if args.data != "synthetic":
         raise SystemExit("only --data synthetic is ported")
-    cfg = Config(data=args.data, max_steps=args.max_steps)
+    cfg = Config(data=args.data, max_steps=args.max_steps, result_dir=args.result_dir)
     runner = AVRunner(cfg, synthetic_scene(device=args.device), device=args.device)
     losses = runner.train()
     if losses[-1] > losses[0]:

@@ -23,7 +23,8 @@ payload and per-slot gradients unless --pack_payload false --pack_grads false
     --tb_every 100 [--tb_save_image true] (TensorBoard, where it is installed)
     --npz_traj_views N [--npz_eval_every 8] (npz: train on a path of N views)
 
-The live viewer (--disable_viewer, --viewer_port) is not ported.
+    --disable_viewer false [--viewer_port 8080] (the live viewer: open
+                                         http://localhost:8080 while it trains)
 """
 
 import sys

@@ -9,8 +9,15 @@ includes (directly or through another header) and of its flags, so an
 edited source or header never loads a stale build.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check`
-turns a non-zero code into an exception.  Nothing here falls back: a
-failed build or launch raises.
+turns a non-zero code into an exception.
+
+Host code (`csrc/<name>.cpp`, the COLMAP and PLY reader) is compiled by
+`g++` into the same directory, named by a hash of its source and flags,
+through `load_host`: each build writes a temporary file and moves it into
+place, so processes that build at once never load a partial library.
+
+Nothing here falls back: a missing compiler, a failed build or a failed
+launch raises.
 """
 
 from __future__ import annotations
@@ -138,6 +145,43 @@ def build_all() -> Dict[str, float]:
         if errors:
             raise RuntimeError("\n".join(errors))
         return seconds
+
+
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+
+
+def _gxx() -> str:
+    for cand in (shutil.which("g++"), "/usr/bin/g++"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("g++ not found: the host readers of csrc/*.cpp are built with it")
+
+
+def _host_lib_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_host_{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source `csrc/<name>.cpp`, built by g++
+    at first use (`HOST_FLAGS`); raises with g++'s output if it fails."""
+    key = f"host:{name}"
+    with _lock:
+        if key not in _libs:
+            path = _host_lib_path(name)
+            if not path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                p = subprocess.run([_gxx(), *HOST_FLAGS, "-o", tmp, str(CSRC / f"{name}.cpp")],
+                                   capture_output=True, text=True)
+                if p.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(f"g++ failed for {name}.cpp:\n{p.stdout}{p.stderr}")
+                os.replace(tmp, path)
+            _libs[key] = ctypes.CDLL(str(path))
+        return _libs[key]
 
 
 _VOID = ctypes.c_void_p

@@ -1,6 +1,7 @@
 """The AV trainer: joint camera and spinning-lidar supervision.
 
-Port of `examples/av_trainer.py` (Config :45-63, synthetic_scene :66-102,
+Port of `examples/av_trainer.py` (Config :45-63, its `result_dir` made
+at :168, synthetic_scene :66-102,
 AVRunner :158-322) on the `synthetic` data path.  Each step renders the
 cameras through the classic rasterizer and the lidar through
 `rasterization(camera_model="lidar", with_ut=True, with_eval3d=True,
@@ -21,6 +22,7 @@ The `ncore` data path (NCore SDK, examples/datasets/ncore.py) is not ported.
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -38,6 +40,7 @@ from .sensors.lidars import SpinningDirection, make_lidar
 @dataclass
 class Config:
     data: str = "synthetic"
+    result_dir: str = "/tmp/av_trainer"
     max_steps: int = 500
     cap_max: int = 8192
     seed: int = 0
@@ -97,6 +100,7 @@ class AVRunner:
         self.cfg = cfg
         self.scene = scene
         self.device = dev = resolve_device(device)
+        os.makedirs(cfg.result_dir, exist_ok=True)
         cap = cfg.cap_max
         pts = scene["points"]
         n0 = pts.shape[0]

@@ -4,9 +4,11 @@ Port of examples/datasets/colmap.py: the binary and text readers of
 cameras / images / points3D (the COLMAP file formats), `Parser` (per-image
 camera-to-world matrices, intrinsics divided by `factor`, the 3D points
 and their colours, the normalizing similarity transform, `scene_scale`)
-and `Dataset` (the `test_every` train / val split).  The readers are the
-pure-Python ones; the JAX parser prefers a native reader where it builds,
-which gives the same arrays (tests/test_io_native.py).
+and `Dataset` (the `test_every` train / val split).  `Parser` reads a
+binary model through the native reader (`io_native`, C++ built by g++; a
+failed build raises), a text model through the text readers here.  The
+pure-Python binary readers here are the plain versions the tests hold the
+native ones to (tests/test_torch_io_native.py).
 
 Images: a PNG is decoded here, with zlib and numpy (8-bit gray, RGB and
 RGBA; not interlaced; the five filter types), so
@@ -284,6 +286,8 @@ def encode_png(rgb: np.ndarray, filter_type: Optional[int] = 0, level: int = 6) 
         img = img[..., None]
     H, W, C = img.shape
     ctype = _PNG_COLOUR_TYPES[C]
+    if filter_type == 0:  # no predictor: the rows as they are
+        return _png_bytes(W, H, ctype, np.zeros(H, np.uint8), img.reshape(H, W * C), level)
     x = img.astype(np.int32)
     a = np.zeros_like(x)
     a[:, 1:] = x[:, :-1]  # left
@@ -303,6 +307,13 @@ def encode_png(rgb: np.ndarray, filter_type: Optional[int] = 0, level: int = 6) 
     else:
         ftype = np.full(H, filter_type, np.uint8)
         body = ((x - preds[filter_type]) & 255).astype(np.uint8).reshape(H, W * C)
+    return _png_bytes(W, H, ctype, ftype, body, level)
+
+
+def _png_bytes(W: int, H: int, ctype: int, ftype: np.ndarray, body: np.ndarray,
+               level: int) -> bytes:
+    """The PNG file of filtered rows `body` [H, W * C] uint8 with their
+    filter types `ftype` [H], compressed at zlib `level`."""
     raw = np.concatenate([ftype[:, None], body], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
@@ -415,9 +426,11 @@ class Parser:
         if not os.path.isdir(sparse):
             sparse = os.path.join(self.data_dir, "sparse")
         if os.path.exists(os.path.join(sparse, "cameras.bin")):
-            cams = read_cameras_binary(os.path.join(sparse, "cameras.bin"))
-            images = read_images_binary(os.path.join(sparse, "images.bin"))
-            xyz, rgb, err = read_points3d_binary(os.path.join(sparse, "points3D.bin"))
+            from .. import io_native
+
+            cams = io_native.read_cameras_binary(os.path.join(sparse, "cameras.bin"))
+            images = io_native.read_images_binary(os.path.join(sparse, "images.bin"))
+            xyz, rgb, err = io_native.read_points3d_binary(os.path.join(sparse, "points3D.bin"))
         else:
             cams = read_cameras_text(os.path.join(sparse, "cameras.txt"))
             images = read_images_text(os.path.join(sparse, "images.txt"))
@@ -444,6 +457,12 @@ class Parser:
         if self.normalize:
             T = similarity_from_cameras(c2w)
             c2w = T @ c2w
+            # T's uniform scale moves the camera centres but leaves the
+            # rotation blocks scaled: divide it back out so that the poses
+            # stay rigid (examples/datasets/normalize.py:transform_cameras,
+            # as upstream gsplat does); the centres -R^T t of the inverted
+            # poses are then the translations here
+            c2w[:, :3, :3] /= np.linalg.norm(c2w[:, 0, :3], axis=1)[:, None, None]
             xyz = (T[:3, :3] @ xyz.T + T[:3, 3:4]).T
         else:
             T = np.eye(4)

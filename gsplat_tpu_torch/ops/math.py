@@ -14,19 +14,19 @@ from typing import Optional, Tuple
 import torch
 
 
-def normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """L2-normalize along `dim`; zero vectors stay zero.
+def normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """L2-normalize along `axis`; zero vectors stay zero.
 
     The clamp sits on the squared sum, as in the JAX package, so the
     gradient at a zero vector is finite.
     """
-    s = torch.sum(x * x, dim=dim, keepdim=True)
+    s = torch.sum(x * x, dim=axis, keepdim=True)
     return x * torch.rsqrt(torch.clamp(s, min=eps * eps))
 
 
 def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
     """(Unnormalized) wxyz quaternions [..., 4] -> rotation matrices [..., 3, 3]."""
-    quats = normalize(quats, dim=-1)
+    quats = normalize(quats, axis=-1)
     w, x, y, z = quats.unbind(-1)
     xx, yy, zz = x * x, y * y, z * z
     xy, xz, yz = x * y, x * z, y * z
@@ -126,7 +126,7 @@ def rotmat_to_quat(rotmats: torch.Tensor) -> torch.Tensor:
     c1 = ((m00 >= m11) & (m00 >= m22))[..., None]
     c2 = (m11 >= m22)[..., None]
     q = torch.where((tr > 0.0)[..., None], q0, torch.where(c1, q1, torch.where(c2, q2, q3)))
-    q = normalize(q, dim=-1, eps=1e-12)
+    q = normalize(q, axis=-1, eps=1e-12)
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
@@ -167,8 +167,8 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Spherical linear interpolation of wxyz quaternions on the short arc;
     a plain lerp where the two are nearly parallel."""
-    q0 = normalize(q0, dim=-1, eps=1e-12)
-    q1 = normalize(q1, dim=-1, eps=1e-12)
+    q0 = normalize(q0, axis=-1, eps=1e-12)
+    q1 = normalize(q1, axis=-1, eps=1e-12)
     dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
     q1 = torch.where(dot < 0, -q1, q1)
     dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
@@ -177,7 +177,7 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor) -> torch.Ten
     near = dot > 1.0 - 1e-6
     w0 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / sin_theta)
     w1 = torch.where(near, t, torch.sin(t * theta) / sin_theta)
-    return normalize(w0 * q0 + w1 * q1, dim=-1, eps=1e-12)
+    return normalize(w0 * q0 + w1 * q1, axis=-1, eps=1e-12)
 
 
 def world_to_cam(

@@ -50,12 +50,18 @@ The add-ons of the JAX `Config`, each as the JAX trainer does it:
     training, into `result_dir/compression`;
   * `tb_every`, `tb_save_image`: TensorBoard scalars (and the target |
     render canvas) under `result_dir/tb` where `tensorboard` is installed.
-The live viewer (`disable_viewer`, `viewer_port`) is not ported yet
-(ROADMAP Queue 1).
+  * `disable_viewer=False`: the live viewer (viewer/) on `viewer_port`
+    during `train()`, as the JAX trainer's: the browser's Pause blocks the
+    loop between steps; every 10 steps (and after the last) the trainer
+    hands it detached clones of the parameters and the alive mask, under
+    `viewer.lock`, so that a frame never reads a tensor a step is writing;
+    the frames render on the trainer's device and stream; the server stays
+    up after training (`self.viewer`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -181,6 +187,9 @@ class Config:
     ppisp_reg: float = 1e-3
     tb_every: int = 100  # TensorBoard cadence in steps, 0 = off
     tb_save_image: bool = False  # a target | render canvas at each TensorBoard step
+    # the live training viewer (viewer/): off by default, as in the JAX trainer
+    disable_viewer: bool = True
+    viewer_port: int = 8080
 
 
 APP_FEATURE_DIM = 32  # the appearance head's per-gaussian features
@@ -333,6 +342,7 @@ class Trainer:
         self._points_np = np.asarray(points)  # the spiral trajectory's bounds
         self._init_addons()
         self.writer = None  # TensorBoard's, open during train()
+        self.viewer = None  # the live viewer of train(), with disable_viewer=False
         self.lpips_w = (load_lpips_weights(cfg.lpips_weights, device=self.device)
                         if cfg.lpips_weights and os.path.exists(cfg.lpips_weights) else None)
         if cfg.ckpt:
@@ -637,6 +647,10 @@ class Trainer:
         rng = np.random.default_rng(cfg.seed)
         overflow_steps = 0
         self.writer = self._open_writer()
+        self.viewer = None
+        if not cfg.disable_viewer:
+            self.viewer = self._open_viewer()
+        viewer = self.viewer
         t0 = time.time()
         self._train_t0 = t0  # the eval's ellipse_time counts from here
         for step in range(self.start_step, cfg.max_steps):
@@ -645,6 +659,10 @@ class Trainer:
             else:
                 idx = rng.integers(0, n_train, C)
             out = self.run_step(step, idx, viewmats_all, Ks_all, targets)
+            if viewer is not None:
+                if step % 10 == 0:
+                    self._viewer_snapshot()
+                viewer.update(step, C * self.width * self.height)
             if step % 100 == 0:  # the only steps that wait for the card
                 if bool(out["overflow"]):
                     overflow_steps += 1
@@ -677,11 +695,56 @@ class Trainer:
         if self.writer is not None:
             self.writer.close()
             self.writer = None
+        if viewer is not None:
+            self._viewer_snapshot()
+            viewer.complete()  # switch to rendering mode; the server stays up
         if cfg.render_traj:
             self.render_traj(step=cfg.max_steps - 1)
         if cfg.compression:
             self.run_compression(cfg.max_steps - 1)
         return self.params, self.alive
+
+    def _open_viewer(self):
+        """The live viewer in training mode over the snapshot that
+        `_viewer_snapshot` keeps (taken here first)."""
+        from .viewer import GsplatViewer, RenderTabState, make_render_fn
+
+        cfg = self.cfg
+        self._snapshot = {}
+        self._viewer_snapshot()
+        snapshot = self._snapshot
+
+        def get_scene():
+            p, al = snapshot["params"], snapshot["alive"]
+            return {
+                "means": p["means"],
+                "quats": p["quats"],
+                "scales": torch.exp(p["scales"]),
+                "opacities": torch.where(al, torch.sigmoid(p["opacities"]), 0.0),
+                "colors": torch.cat([p["sh0"], p["shN"]], dim=1),
+                "sh_degree": cfg.sh_degree,
+                "n_rendered": int(al.sum()),
+            }
+
+        return GsplatViewer(
+            make_render_fn(get_scene, isect_capacity=cfg.isect_capacity,
+                           row_capacity=cfg.row_capacity or None),
+            output_dir=cfg.result_dir, mode="training", port=cfg.viewer_port,
+            state=RenderTabState(total_gs_count=int(self.params["means"].shape[0]),
+                                 max_sh_degree=cfg.sh_degree),
+        )
+
+    @torch.no_grad()
+    def _viewer_snapshot(self) -> None:
+        """Detached clones of the splats and the alive mask for the viewer's
+        frames, swapped in under `viewer.lock` (a frame renders under it):
+        the optimizer updates the live tensors in place."""
+        snap = {"params": {k: self.params[k].detach().clone()
+                           for k in ("means", "quats", "scales", "opacities", "sh0", "shN")},
+                "alive": self.alive.detach().clone()}
+        # the first snapshot comes before the server starts
+        with self.viewer.lock if self.viewer is not None else contextlib.nullcontext():
+            self._snapshot.update(snap)
 
     def _open_writer(self):
         """TensorBoard's SummaryWriter under result_dir/tb when tb_every > 0

@@ -36,11 +36,11 @@ def invert_se3(mats: torch.Tensor) -> torch.Tensor:
     """Differentiable inverse of camera transforms [..., 4, 4]:
     [R^T | -R^T t] as the JAX trainer writes it (not a general inverse),
     divided by the square of the block's uniform scale s^2 = |R|_F^2 / 3, so
-    that a similarity [s R | t] inverts exactly too.  The COLMAP parser's
-    normalised poses are such similarities (its scale stays in the rotation
-    block), where the JAX formula moves the camera to t / s^2.  On rigid
-    transforms s^2 = 1: the value is the JAX one, and so is the gradient
-    along them (s^2 does not change along a rigid motion)."""
+    that a similarity [s R | t] inverts exactly too, where the JAX formula
+    moves the camera to t / s^2.  The port's COLMAP parser re-orthonormalises
+    its normalised poses, so on them, as on every rigid transform, s^2 = 1:
+    the value is the JAX one, and so is the gradient along them (s^2 does
+    not change along a rigid motion)."""
     R = mats[..., :3, :3]
     t = mats[..., :3, 3]
     s2 = (R * R).sum(dim=(-2, -1)) / 3.0

@@ -80,7 +80,8 @@ def test_three_steps_match_the_jax_runner(tmp_path, monkeypatch):
     # resumes saturated pixels in later 128-slot chunks (ROADMAP Queue 3)
     monkeypatch.setattr(j_rendering, "rasterize_to_pixels_eval3d", _oracle_eval3d)
     jr = jav.AVRunner(_cfg(jav.Config, result_dir=str(tmp_path)), jav.synthetic_scene(**SIZE))
-    tr = AVRunner(_cfg(Config), synthetic_scene(**SIZE, device="cpu"), device="cpu")
+    tr = AVRunner(_cfg(Config, result_dir=str(tmp_path)), synthetic_scene(**SIZE, device="cpu"),
+                  device="cpu")
     cfg = jr.cfg
     for k in KEYS:
         np.testing.assert_array_equal(tr.params[k].numpy(), np.asarray(jr.params[k]), err_msg=k)
@@ -165,9 +166,10 @@ def test_three_steps_match_the_jax_runner(tmp_path, monkeypatch):
                                        err_msg=f"step {s}: {k} against the JAX step")
 
 
-def test_train_runs_and_the_loss_falls():
+def test_train_runs_and_the_loss_falls(tmp_path):
     """train() end to end on the CPU: 3 steps from the generator's own draw."""
-    run = AVRunner(_cfg(Config), synthetic_scene(**SIZE, device="cpu"), device="cpu")
+    run = AVRunner(_cfg(Config, result_dir=str(tmp_path)), synthetic_scene(**SIZE, device="cpu"),
+                   device="cpu")
     losses = run.train(log=lambda m: None)
     assert len(losses) == 2 and all(np.isfinite(losses)) and losses[-1] < losses[0]
 
@@ -199,3 +201,21 @@ def test_lidar_losses(name, masked):
         assert abs(got - want) <= 1e-6 * max(1.0, abs(want)), (name, kw, got, want)
     with pytest.raises(ValueError, match="unknown loss_fn"):
         tf(*(None if a is None else _t(a) for a in args), loss_fn="nope")
+
+
+def test_config_takes_the_result_dir_and_the_runner_makes_it(tmp_path):
+    """Every field of the JAX AV Config, with its default; `result_dir` made
+    when the runner is built (examples/av_trainer.py:47, :168)."""
+    import dataclasses
+
+    import av_trainer as jav
+
+    jax_fields = {f.name: f.default for f in dataclasses.fields(jav.Config)}
+    ours = {f.name: f.default for f in dataclasses.fields(Config)}
+    assert set(jax_fields) <= set(ours)
+    for name, default in jax_fields.items():
+        assert ours[name] == default, name
+    out = tmp_path / "run" / "av"
+    run = AVRunner(_cfg(Config, result_dir=str(out)), synthetic_scene(**SIZE, device="cpu"),
+                   device="cpu")
+    assert run.cfg.result_dir == str(out) and out.is_dir()

@@ -6,7 +6,9 @@ writes them, with PNG images in RGB, RGBA and gray, every filter type
 among them (palette and gray-with-alpha PNGs are refused).  Names, sizes,
 indices and splits must be equal; the matrices, points, transform and
 scene scale within 1e-6 (both sides do the same float64 numpy arithmetic:
-they are in fact equal); the images equal to PIL's decode, bit for bit.
+they are in fact equal), the port's rotation blocks those of the JAX
+parser with the normalisation's scale divided out; the images equal to
+PIL's decode, bit for bit.
 """
 
 import io
@@ -17,6 +19,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
@@ -51,6 +54,16 @@ def _poses(rng, n):
         R = np.stack([right, np.cross(fwd, right), fwd])
         out.append((tcolmap._rotmat_to_qvec(R), -R @ eye))
     return out
+
+
+def _rigid(c2w):
+    """The JAX parser's normalised poses with the normalisation's scale
+    divided out of their rotation blocks, as the port's parser does
+    (examples/datasets/normalize.py:transform_cameras); the translations
+    stay."""
+    c2w = c2w.copy()
+    c2w[:, :3, :3] /= np.linalg.norm(c2w[:, 0, :3], axis=1)[:, None, None]
+    return c2w
 
 
 def _image(rng, mode):
@@ -144,6 +157,8 @@ def test_parser_and_dataset_match_the_jax_parser(scene_dir, factor, normalize):
     for k in ("camtoworlds", "Ks", "points", "transform"):
         a, b = getattr(tp, k), getattr(jp, k)
         assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+        if k == "camtoworlds":
+            b = _rigid(b)
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6, err_msg=k)
     np.testing.assert_array_equal(tp.points_rgb, jp.points_rgb)
     np.testing.assert_allclose(tp.points_err, jp.points_err, rtol=0, atol=1e-12)
@@ -164,6 +179,24 @@ def test_parser_and_dataset_match_the_jax_parser(scene_dir, factor, normalize):
                                                                            W // factor, 3)
             np.testing.assert_array_equal(a["image"], b["image"])  # PIL's decode, bit for bit
         assert "image" not in Dataset(tp, split, load_images=False)[0]
+
+
+def test_normalised_poses_are_rigid_and_their_centres_are_the_translations(scene_dir):
+    """On a scene whose normalisation scales it (cameras about 3.2 from
+    their centroid), each pose's rotation block is orthonormal and the
+    camera centres that rasterization() takes from the inverted poses (SH
+    view directions) are the parser's c2w translations."""
+    from gsplat_tpu_torch.rendering import _campos_from_viewmats
+
+    tp = Parser(scene_dir, normalize=True, test_every=8)
+    s = np.linalg.norm(tp.transform[0, :3])
+    assert abs(s - 1.0) > 0.5  # the normalisation scales this scene
+    R = tp.camtoworlds[:, :3, :3].astype(np.float64)
+    np.testing.assert_allclose(R @ R.transpose(0, 2, 1), np.tile(np.eye(3), (N_VIEWS, 1, 1)),
+                               rtol=0, atol=1e-6)
+    viewmats = torch.from_numpy(np.linalg.inv(tp.camtoworlds))
+    centres = _campos_from_viewmats(viewmats).numpy()
+    np.testing.assert_allclose(centres, tp.camtoworlds[:, :3, 3], rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("mode, filter_type",
@@ -257,5 +290,5 @@ def test_written_binary_model_reads_back_in_both_parsers(tmp_path):
         with open(tmp_path / "images" / n, "wb") as f:
             f.write(encode_png(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)))
     jp, tp = jcolmap.Parser(str(tmp_path), factor=1), Parser(str(tmp_path), factor=1)
-    np.testing.assert_allclose(tp.camtoworlds, jp.camtoworlds, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tp.camtoworlds, _rigid(jp.camtoworlds), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(Dataset(tp)[0]["image"], jcolmap.Dataset(jp)[0]["image"])

@@ -1,7 +1,8 @@
 """The port's public surface against the JAX package's: the top-level
-export lists are equal (PngCompression included), the ops lists are equal, every exported name
-resolves, the seven feature probes return True, and the port-rules scan
-covers every module of the package."""
+export lists are equal (PngCompression included), the ops and viewer lists are equal, the
+utils list holds the JAX one, every exported name resolves, the seven feature probes return
+True, the port-rules scan covers every module of the package, and ops.normalize takes the
+JAX keywords."""
 
 import pathlib
 
@@ -12,6 +13,8 @@ import pytest
 import gsplat_tpu_torch
 import gsplat_tpu_torch.geometry
 import gsplat_tpu_torch.ops
+import gsplat_tpu_torch.utils
+import gsplat_tpu_torch.viewer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -33,8 +36,23 @@ def test_geometry_export_lists_are_equal():
     assert sorted(gsplat_tpu.geometry.__all__) == sorted(gsplat_tpu_torch.geometry.__all__)
 
 
+def test_viewer_export_list_equals_the_jax_list():
+    import gsplat_tpu.viewer
+
+    assert gsplat_tpu_torch.viewer.__all__ == gsplat_tpu.viewer.__all__
+
+
+def test_utils_export_list_holds_the_jax_list():
+    import gsplat_tpu.utils
+
+    assert set(gsplat_tpu.utils.__all__) <= set(gsplat_tpu_torch.utils.__all__)
+    assert {"depth_to_normal", "depth_to_points", "synthetic_test_data"} <= set(
+        gsplat_tpu_torch.utils.__all__)
+
+
 @pytest.mark.parametrize("module", [gsplat_tpu_torch, gsplat_tpu_torch.ops,
-                                    gsplat_tpu_torch.geometry], ids=lambda m: m.__name__)
+                                    gsplat_tpu_torch.geometry, gsplat_tpu_torch.utils,
+                                    gsplat_tpu_torch.viewer], ids=lambda m: m.__name__)
 def test_every_exported_name_resolves(module):
     missing = [n for n in module.__all__ if getattr(module, n, None) is None]
     assert not missing
@@ -54,5 +72,25 @@ def test_port_rules_scan_every_new_module():
                 "ops/rasterize_ref.py", "ops/rasterize2d_ref.py", "ops/rasterize_eval3d_ref.py",
                 "ops/projection_packed.py", "geometry/functional.py", "color_correct.py",
                 "training/pose.py", "training/bilateral_grid.py", "training/ppisp.py",
-                "datasets/traj.py", "compression/plas.py", "compression/png_compression.py"):
+                "datasets/traj.py", "compression/plas.py", "compression/png_compression.py",
+                "viewer/core.py", "viewer/page.py", "viewer/render.py", "viewer/__init__.py",
+                "io_native.py", "profile.py", "utils/trace.py", "utils/data.py"):
         assert (ROOT / "gsplat_tpu_torch" / rel).resolve() in scanned, rel
+    assert (ROOT / "examples" / "simple_viewer_torch.py").resolve() in scanned
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_normalize_takes_the_jax_axis_keyword(axis):
+    """ops.normalize(x, axis=..., eps=...) as gsplat_tpu/ops/math.py:19 has it,
+    zero vectors included."""
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    x = np.random.default_rng(axis + 3).standard_normal((4, 5, 3)).astype(np.float32)
+    x[0, 0] = 0.0
+    x[:, 2, :] = 0.0
+    want = np.asarray(gsplat_tpu.ops.normalize(jnp.asarray(x), axis=axis, eps=1e-12))
+    got = gsplat_tpu_torch.ops.normalize(torch.from_numpy(x), axis=axis, eps=1e-12).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+

@@ -3,7 +3,9 @@ same directory (examples/simple_trainer.py, data="colmap").
 
 A tiny scene is written here: 200 points, 5 views at 64x48 whose PNG
 targets the port renders on the CPU (test_every=8 leaves view 0 out of
-training).  Held to the JAX runner: the initial parameters, viewmats, Ks,
+training).  Its cameras lie 1 from their centroid, so the parsers'
+normalisation has scale 1 and both packages' poses are rigid (the port
+divides that scale out of the rotation blocks, the JAX parser keeps it).  Held to the JAX runner: the initial parameters, viewmats, Ks,
 targets and scene scale (1e-6); per step, from identical parameters, the
 loss (2e-5, the band of tests/test_torch_trainer.py); the eval's PSNR, SSIM
 and LPIPS proxy on identical parameters (the images are in the forward
@@ -37,15 +39,16 @@ W, H, VIEWS = 64, 48, 5
 
 
 def write_tiny_scene(root):
-    """A binary COLMAP model of 200 points seen by 5 cameras on a circle,
-    and PNG images rendered from those points with the port on the CPU."""
+    """A binary COLMAP model of 200 points seen by 5 cameras on a circle of
+    radius 1 around their centroid, and PNG images rendered from those
+    points with the port on the CPU."""
     rng = np.random.default_rng(0)
-    pts = rng.uniform(-1.0, 1.0, (200, 3)).astype(np.float32)
+    pts = rng.uniform(-0.25, 0.25, (200, 3)).astype(np.float32)
     rgb = rng.integers(0, 256, (200, 3), dtype=np.uint8)
     vms = []
     for i in range(VIEWS):
         a = 2 * np.pi * i / VIEWS
-        eye = np.array([4 * np.cos(a), 4 * np.sin(a), 1.0])
+        eye = np.array([np.cos(a), np.sin(a), 0.25])
         fwd = -eye / np.linalg.norm(eye)
         right = np.cross(fwd, [0.0, 0.0, -1.0])
         right /= np.linalg.norm(right)
@@ -62,7 +65,7 @@ def write_tiny_scene(root):
     with torch.no_grad():
         img, _, _ = rasterization(
             torch.from_numpy(pts), torch.tensor([[1.0, 0, 0, 0]]).expand(n, 4).contiguous(),
-            torch.full((n, 3), 0.12), torch.full((n,), 0.9),
+            torch.full((n, 3), 0.03), torch.full((n,), 0.9),
             torch.from_numpy(rgb.astype(np.float32) / 255.0),
             torch.from_numpy(vms.astype(np.float32)), torch.from_numpy(np.tile(K, (VIEWS, 1, 1))),
             W, H)

@@ -106,24 +106,34 @@ def test_invert_se3_matches_the_jax_trainer_on_rigid_poses():
 
 
 def test_invert_se3_inverts_the_normalised_colmap_poses():
-    """The COLMAP parser's normalised poses keep the scale of the
-    normalisation in their rotation block (examples/datasets/colmap.py:270,
-    and the port's parser as it); the JAX trainer's [R^T | -R^T t] then
-    moves each camera to t / s^2.  The port's inverse is exact."""
+    """The COLMAP normalisation T (similarity_from_cameras) is a similarity.
+    The port's parser divides its scale out of T @ c2w's rotation blocks,
+    so its normalised poses are rigid, and there the port's inverse equals
+    the JAX trainer's [R^T | -R^T t].  On the similarity poses T @ c2w
+    themselves (as examples/datasets/colmap.py:270 keeps them) the port's
+    inverse is still exact, where the JAX formula moves each camera to
+    t / s^2."""
     from simple_trainer import _invert_se3
 
     from gsplat_tpu_torch.datasets.colmap import similarity_from_cameras
 
     c2w = _rigid(np.random.default_rng(5), 4).astype(np.float64)
     c2w[:, :3, 3] *= 7.0
-    c2w = similarity_from_cameras(c2w) @ c2w  # the parser's normalisation
-    s = np.linalg.norm(c2w[:, :3, 0], axis=1)
+    sim = similarity_from_cameras(c2w) @ c2w  # the normalisation, scale kept
+    s = np.linalg.norm(sim[:, :3, 0], axis=1)
     assert np.all(np.abs(s - s[0]) < 1e-9) and s[0] < 0.5  # a similarity, not rigid
-    vm = np.linalg.inv(c2w).astype(np.float32)
+    vm = np.linalg.inv(sim).astype(np.float32)
     got = invert_se3(torch.from_numpy(vm)).numpy()
-    np.testing.assert_allclose(got, c2w, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, sim, rtol=0, atol=1e-5)
     jax_c2w = np.asarray(_invert_se3(jnp.asarray(vm)))
-    np.testing.assert_allclose(jax_c2w[:, :3, 3], c2w[:, :3, 3] / s[:, None] ** 2, rtol=1e-4)
+    np.testing.assert_allclose(jax_c2w[:, :3, 3], sim[:, :3, 3] / s[:, None] ** 2, rtol=1e-4)
+
+    rigid = sim.copy()  # the port parser's normalised poses
+    rigid[:, :3, :3] /= s[:, None, None]
+    vm = np.linalg.inv(rigid).astype(np.float32)
+    got = invert_se3(torch.from_numpy(vm)).numpy()
+    np.testing.assert_allclose(got, rigid, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(_invert_se3(jnp.asarray(vm))), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("sh_degree,with_ids", [(0, True), (1, True), (3, True), (3, False)])
