@@ -1,7 +1,8 @@
 """Drive the PyTorch port's main paths, serving, the analysis ops, 3DGS
 training, 2DGS training, the 3DGUT render, the AV trainer, COLMAP training,
-the viewer and the profiler, on one NVIDIA card and hold each CUDA kernel
-against its plain PyTorch version.
+the viewer and the profiler, distributed rendering, the dynamic trainer,
+image fitting and the AV trainer's NCore branch, on one NVIDIA card and
+hold each CUDA kernel against its plain PyTorch version.
 
 Run from the repository root, on a machine with a CUDA card:
 
@@ -224,6 +225,30 @@ Phases:
      scene_grid 1, res_factor 2 (fwd_ms, step_ms); one rasterization call
      captured and replayed by ProfileWorkload, bit for bit, timed forward
      and with its gradient, its trace holding K3's, K4's and K1's kernels.
+ 19. distributed: gsplat_tpu_torch.distributed.cli makes a world of one
+     rank (NCCL) and make_gs_mesh its DeviceMesh; rasterization_sharded
+     renders the serving scene's 4 views at 3840x2160 (SH 3) with the dense
+     exchange and with the packed one, forward and backward of a seeded
+     linear loss, against rasterization() on the same inputs: images within
+     3e-5, the gradients of means, quats, scales, opacities, colors and
+     means2d_offset within 5e-4 of each one's largest entry
+     (tests/test_parallel.py's bands); ms, peak GiB, n_isects and the
+     overflow flag of each run.  A real two-rank run needs a second card.
+ 20. dynamic: an EndoNeRF directory of 6 frames at the dataset's 640x512
+     (poses_bounds.npy, 8-bit RGB, 16-bit depth and binary tool masks, all
+     through the port's PNG writer); the dynamic trainer at the JAX
+     Config's defaults, 10 steps at factor 1 and 10 at the CLI's factor 4
+     (ms, loss, peak GiB a step); then the synthetic regime's default 300
+     steps, whose loss must fall.
+ 21. image fitting: examples/image_fitting_torch.py at the JAX defaults
+     (256x256, 2,000 points) for 100 iterations, whose MSE must fall; then
+     a 3840x2160 target with 100,000 points for 10 (ms an iteration).
+ 22. NCore: an in-memory SequenceSource (one 1920x1280 camera, 4 frames of
+     which 3 train, a lidar cloud of 1,000,000 points) through
+     av_trainer.ncore_scene, then AVRunner for 9 steps, photometric only
+     (no eval3d launch); the loss must not rise.
+     For each of phases 19 to 22 the counts are set to 0 just before and read
+     just after: K3, K4, K1, K2 and K5 (float32) must be > 0.
 It prints one `kernels` JSON line (14 kernels, each with its launches on
 every path and `launches` on its own: MAIN_PATH; K1's records also carry
 `exp_bound_ms`, one exp per evaluated pair on the special-function units;
@@ -259,6 +284,10 @@ from torch.profiler import ProfilerActivity, profile
 from gsplat_tpu_torch import _build, color_correct_affine, rasterization
 from gsplat_tpu_torch import losses as losses_mod
 from gsplat_tpu_torch import av_trainer as av_mod
+from gsplat_tpu_torch import distributed as dist_mod
+from gsplat_tpu_torch import dynamic_trainer as dyn_mod
+from gsplat_tpu_torch.datasets import ncore as ncore_mod
+from gsplat_tpu_torch.parallel import rasterization_sharded
 from gsplat_tpu_torch import trainer as trainer_mod
 from gsplat_tpu_torch import trainer_2dgs as trainer2d_mod
 from gsplat_tpu_torch.ops import bf16pair
@@ -3400,6 +3429,531 @@ def tools_phase(dev, raw, data_dir: str, log) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 19 to 22: distributed rendering, the dynamic trainer, image fitting
+# and the AV trainer's NCore branch
+# ---------------------------------------------------------------------------
+
+# every path of this slice renders through rasterize_to_pixels' float32 kernels
+LAST_SLICE_KERNELS = EXACT_RENDER_KERNELS + ("rasterize_bwd", "segment_rowsum")
+SHARDED_PARAMS = ("means", "quats", "scales", "opacities", "colors")
+ENDO_WH, ENDO_FRAMES, ENDO_FOCAL, ENDO_STEPS = (640, 512), 6, 569.0, 10
+# examples/dynamic_surgical_trainer.py's default run, whose loss must fall (:184-188)
+DYN_SYNTH_STEPS = 300
+FIT_WH, FIT_POINTS, FIT_ITERS = (256, 256), 2000, 100  # examples/image_fitting.py's defaults
+FIT_BIG_WH, FIT_BIG_POINTS, FIT_BIG_ITERS = (3840, 2160), 100_000, 10
+# one Waymo front camera, 4 frames (frame 0 is the validation split's), a
+# lidar cloud of 1,000,000 points over them
+NCORE_WH, NCORE_FRAMES, NCORE_POINTS, NCORE_STEPS = (1920, 1280), 4, 1_000_000, 9
+
+
+def require_kernels(launches: dict, path: str, log) -> None:
+    log(f"{path} launches " + json.dumps(launches))
+    for name in LAST_SLICE_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the {path} path")
+
+
+class FirstCalls:
+    """While installed on ops/rasterize.py's names of K3, K4, K1, K2 and K5,
+    keeps each kernel's arguments at its first call, tensors copied (a path
+    may write into them later), so that the kernels can be held to their
+    plain versions on a path's own inputs once its launches are read."""
+
+    def __init__(self):
+        self.calls, self.saved = {}, {name: getattr(rz, name) for name in LAST_SLICE_KERNELS}
+        for name, fn in self.saved.items():
+            setattr(rz, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            if name not in self.calls:
+                self.calls[name] = (tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                                    dict(kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    def restore(self) -> dict:
+        for name, fn in self.saved.items():
+            setattr(rz, name, fn)
+        return self.calls
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32 \
+        else torch.equal(a, b)
+
+
+@torch.no_grad()
+def check_path_kernels(calls: dict, what: str, timer, log) -> dict:
+    """K3, K4, K1, K2 and K5 (float32) against their plain versions on the
+    arguments of their first call on a path (`FirstCalls`): K3, K4 and K5
+    bit for bit; K1's image and transmittance within 1e-4 (as at the serving
+    shape) and band_close's band; K2 by check_bwd_kernel (each row within
+    1e-4 of its largest entry), on every tile up to 2^20 pixels and on
+    PLAIN_TILES' sample beyond.  Returns each kernel's largest absolute
+    error."""
+    require(sorted(calls) == sorted(LAST_SLICE_KERNELS),
+            f"{what}: kernels not called: {sorted(set(LAST_SLICE_KERNELS) - set(calls))}")
+    err = {}
+    for name, kernel, plain in (("expand_rows", gk.expand_rows, gk.expand_rows_plain),
+                                ("expand_emission", gk.expand_emission,
+                                 gk.expand_emission_plain)):
+        args, kw = calls[name]
+        require(not kw.get("packed"), f"{what}: {name} ran packed")
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        require(all(same_bits(x, y) for x, y in zip(got, want)), f"{name} ({what}) != plain")
+        err[name] = 0.0
+        del got, want
+    args, kw = calls["rasterize_fwd"]
+    got, want = rk.rasterize_fwd(*args, **kw), rk.rasterize_fwd_plain(*args, **kw)
+    band_close(got[0], want[0], f"rasterize_fwd ({what}): image")
+    band_close(got[1], want[1], f"rasterize_fwd ({what}): transmittance")
+    err["rasterize_fwd"] = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    require(err["rasterize_fwd"] <= 1e-4,
+            f"rasterize_fwd ({what}): max |d| {err['rasterize_fwd']} > 1e-4")
+    del got, want
+    args, kw = calls["rasterize_bwd"]
+    bounds, n_images, tiles_w, tiles_h, W, H = args[1], args[2], *args[4:8]
+    tiles = None
+    if n_images * W * H > 1 << 20:
+        counts = (bounds[1:] - bounds[:-1]).long()
+        tiles, _ = sampled_tiles(counts, n_images, tiles_w, tiles_h, W, H, bounds.device)
+    err["rasterize_bwd"], *_ = check_bwd_kernel(args, what, log, tiles=tiles, **kw)
+    args, _ = calls["segment_rowsum"]
+    _, err["segment_rowsum"], _ = check_segment_rowsum(args, what, timer, log)
+    log(f"{what}: K3, K4, K5 equal to their plain versions bit for bit; "
+        f"{int(bounds[-1])} slots in {n_images} images at {W}x{H}; max |d| "
+        + json.dumps(err))
+    return err
+
+
+class StepClock:
+    """ms, loss and peak GiB of each call of a step function."""
+
+    def __init__(self, dev, what: str, log):
+        self.dev, self.what, self.log, self.records = dev, what, log, []
+
+    def __call__(self, fn, *args):
+        on_card = self.dev.type == "cuda"
+        sync(self.dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn(*args)
+        loss = out[0] if isinstance(out, tuple) else out
+        sync(self.dev)
+        rec = dict(step=len(self.records), ms=(time.perf_counter() - t) * 1e3, loss=float(loss),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None)
+        self.records.append(rec)
+        self.log(f"{self.what} " + json.dumps(rec))
+        require(math.isfinite(rec["loss"]), f"{self.what} step {rec['step']}: loss not finite")
+        return out
+
+
+def distributed_phase(dev, raw, viewmats, K, wh, timer, log):
+    """Phase 19: rasterization_sharded at world size 1 (NCCL on the card),
+    the dense exchange and the packed one, forward and backward, on the
+    serving scene's 4 views at `wh` with SH 3, against rasterization() on
+    the same inputs: images within 3e-5, the gradients of the five inputs
+    and of means2d_offset within 5e-4 of each one's largest entry
+    (tests/test_parallel.py's bands); the kernels against their plain
+    versions on the dense route's first call.  Returns the sharded runs'
+    launches and the kernels' errors."""
+    W, H = wh
+    C, N = len(viewmats), len(raw["means"])
+    dist_mod.cli(lambda *a: None, device=dev)
+    require(dist_mod.world_info()[:2] == (0, 1), "the process group is not a world of one")
+    mesh = dist_mod.make_gs_mesh(device=dev)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    inputs = dict(means=t(raw["means"]), quats=t(raw["quats"]),
+                  scales=torch.exp(t(raw["scales"])), opacities=torch.sigmoid(t(raw["opacities"])),
+                  colors=torch.cat([t(raw["sh0"]), t(raw["shN"])], dim=1))
+    vm, Ks = t(viewmats), t(np.tile(K[None], (C, 1, 1)))
+    cap = -(-4 * C * N // 128) * 128  # rasterization_sharded's default at world size 1
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cot = torch.randn((C, H, W, 3), generator=g, device=dev)
+    clock = StepClock(dev, "distributed", lambda m: None)  # logged below, with the meta
+
+    def render(fn, what, **kw):
+        leaves = {k: v.clone().requires_grad_() for k, v in inputs.items()}
+        off = torch.zeros((C, N, 2), device=dev, requires_grad=True)
+
+        def fwd_bwd():
+            img, alpha, meta = fn(*(leaves[k] for k in SHARDED_PARAMS), vm, Ks, W, H,
+                                  sh_degree=3, means2d_offset=off, **RENDER_KW, **kw)
+            loss = (img * cot).sum()
+            loss.backward()
+            return loss.detach(), img.detach(), alpha.detach(), meta
+
+        fwd_bwd()  # warm: the first call of each route sets up its buffers
+        for x in (*leaves.values(), off):
+            x.grad = None
+        loss, img, alpha, meta = clock(fwd_bwd)
+        clock.records[-1].update(what=what, n_isects=int(meta["n_isects"]),
+                                 overflow=bool(meta["isect_overflow"]))
+        log("distributed " + json.dumps(clock.records[-1]))
+        require(not bool(meta["isect_overflow"]), f"distributed {what}: isect_overflow")
+        grads = {k: leaves[k].grad for k in SHARDED_PARAMS}
+        grads["means2d_offset"] = off.grad
+        return img, alpha, grads, meta
+
+    ref_img, ref_alpha, ref_grads, _ = render(rasterization, "rasterization()",
+                                              isect_capacity=cap)
+    require(float(ref_alpha.mean()) > 0, "distributed: the reference image is empty")
+    reset_launches()
+    first = FirstCalls()
+    outs = {mode: render(rasterization_sharded, mode, mesh=mesh, packed=mode == "packed")
+            for mode in ("dense", "packed")}
+    calls = first.restore()
+    launches = read_launches()
+    for mode, (img, alpha, grads, meta) in outs.items():
+        require(meta["isect_capacity"] == cap and meta["world_size"] == 1
+                and meta["n_cameras"] == C, f"distributed {mode}: meta {meta}")
+        for a, b, what in ((img, ref_img, "colors"), (alpha, ref_alpha, "alphas")):
+            e = float((a - b).abs().max())
+            log(f"distributed {mode} {what} against rasterization(): max |d| {e:.3g}")
+            require(e <= 3e-5, f"distributed {mode} {what}: max |d| {e} > 3e-5")
+        for k, want in ref_grads.items():
+            scale = max(float(want.abs().max()), 1e-6)
+            e = float((grads[k] - want).abs().max())
+            log(f"distributed {mode} d{k}: max |d| {e:.3g} of {scale:.3g}")
+            require(e <= 5e-4 * scale, f"distributed {mode} d{k}: max |d| {e} > 5e-4 x {scale}")
+    del outs, ref_grads
+    torch.distributed.destroy_process_group()
+    require_kernels(launches, "distributed", log)
+    return launches, check_path_kernels(calls, f"distributed dense, {C} views at {W}x{H}",
+                                        timer, log)
+
+
+def write_endonerf_dir(path: str, wh, n_frames: int, focal: float) -> None:
+    """An EndoNeRF directory at `wh` (examples/datasets/endonerf.py's
+    layout) through the port's PNG writer: poses_bounds.npy (LLFF columns, a
+    camera sliding 1% of the depth a frame), 8-bit RGB frames of drifting
+    tissue-like texture, 16-bit gray depth maps (metric, 60 to 140), binary
+    tool masks (255 = tool: a shaft entering from one side)."""
+    W, H = wh
+    poses = np.zeros((n_frames, 3, 5))
+    poses[:, :, 0], poses[:, :, 1], poses[:, :, 2] = [0, -1, 0], [1, 0, 0], [0, 0, 1]
+    poses[:, :, 3] = [[1.0 * i, 0, 0] for i in range(n_frames)]
+    poses[:, :, 4] = [H, W, focal]
+    np.save(os.path.join(path, "poses_bounds.npy"), np.concatenate(
+        [poses.reshape(n_frames, 15), np.tile([40.0, 160.0], (n_frames, 1))], axis=1))
+    yy, xx = np.mgrid[0:H, 0:W] / np.array([H, W], np.float64)[:, None, None]
+    for sub in ("images", "depth", "masks"):
+        os.makedirs(os.path.join(path, sub))
+    for i in range(n_frames):
+        ph = 0.3 * i
+        rgb = np.stack([0.6 + 0.3 * np.sin(9 * xx + 5 * yy + ph),
+                        0.35 + 0.2 * np.cos(11 * yy - ph) * np.sin(7 * xx),
+                        0.3 + 0.15 * np.sin(13 * (xx - yy) + ph)], -1)
+        depth = 60 + 80 * (0.5 + 0.5 * np.sin(3 * xx + ph) * np.cos(2 * yy))
+        tool = np.abs((yy - 0.3 - 0.05 * i) - 0.6 * (xx - 0.7)) < 0.06
+        tool &= xx > 0.55
+        for sub, img in (("images", (rgb * 255).astype(np.uint8)),
+                         ("depth", depth.astype(np.uint16)),
+                         ("masks", tool.astype(np.uint8) * 255)):
+            with open(os.path.join(path, sub, f"{i:06d}.png"), "wb") as f:
+                f.write(encode_png(img))
+
+
+def dynamic_phase(dev, timer, log):
+    """Phase 20: the dynamic trainer at the JAX Config's defaults on an
+    EndoNeRF directory of the dataset's own 640x512 frames, at factor 1 and
+    at the CLI's default factor 4, ENDO_STEPS steps each; then the synthetic
+    regime's default run, whose loss must fall.  The kernels are held to
+    their plain versions on each factor's first step.  Returns the launches
+    and the kernels' errors."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_endonerf_")
+    t0 = time.perf_counter()
+    write_endonerf_dir(tmp, ENDO_WH, ENDO_FRAMES, ENDO_FOCAL)
+    log(f"dynamic: EndoNeRF directory of {ENDO_FRAMES} frames at {ENDO_WH[0]}x{ENDO_WH[1]} "
+        f"written in {time.perf_counter() - t0:.2f} s")
+    reset_launches()
+    calls = {}
+    for factor in (1, 4):
+        cfg = dyn_mod.Config(max_steps=ENDO_STEPS)
+        t0 = time.perf_counter()
+        scene = dyn_mod.endonerf_scene(cfg, tmp, factor=factor)
+        runner = dyn_mod.DynamicRunner(cfg, scene, device=dev)
+        log(f"dynamic factor {factor}: {len(scene['points'])} gaussians of cap {cfg.cap}, "
+            f"{cfg.W}x{cfg.H}, {cfg.n_times} frames, set up in {time.perf_counter() - t0:.2f} s")
+        require(runner.loss_masks is not None and float(runner.loss_masks.mean()) < 1,
+                "dynamic: the tool masks do not reach the loss")
+        clock = StepClock(dev, f"dynamic factor {factor}", log)
+        for step in range(cfg.max_steps):
+            first = FirstCalls() if step == 0 else None
+            clock(runner.train_step, step)
+            if first is not None:
+                calls[f"dynamic factor {factor}, {cfg.W}x{cfg.H}, cap {cfg.cap}"] = first.restore()
+        if dev.type == "cuda" and factor == 1:
+            device_profile(lambda: runner.train_step(0), clock.records[-1]["ms"], log,
+                           "dynamic_step")
+        del runner
+    shutil.rmtree(tmp)
+    cfg = dyn_mod.Config(max_steps=DYN_SYNTH_STEPS)
+    sync(dev)
+    t0 = time.perf_counter()
+    losses = dyn_mod.run_training(cfg, dyn_mod.synthetic_dynamic_scene(cfg), device=dev,
+                                  log=lambda m: log("dynamic synthetic " + m))
+    sync(dev)
+    log("dynamic synthetic " + json.dumps(
+        {"steps": cfg.max_steps, "ms_per_step": (time.perf_counter() - t0) * 1e3 / cfg.max_steps,
+         "losses": losses}))
+    require(losses[-1] < losses[0], f"dynamic synthetic: the loss did not fall: {losses}")
+    launches = read_launches()
+    require_kernels(launches, "dynamic", log)
+    return launches, [check_path_kernels(c, what, timer, log) for what, c in calls.items()]
+
+
+def _image_fitting_module():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "image_fitting_torch.py")
+    spec = importlib.util.spec_from_file_location("image_fitting_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def image_fitting_phase(dev, timer, log):
+    """Phase 21: examples/image_fitting_torch.py at the JAX defaults (256x256,
+    2,000 points) for FIT_ITERS iterations, whose MSE must fall; then one
+    3840x2160 target with 100,000 points for FIT_BIG_ITERS.  The example's
+    capacity, 16 slots a point, truncates both plans, as the JAX example's
+    does: each run logs the overflow flag, the plan's n_isects (under a row
+    overflow only the rows that fit are counted, in both packages) and the
+    AABB tile count (tiles_per_gauss), between which the true count lies.
+    The kernels are held to their plain versions on each run's first
+    iteration.  Returns the launches and the kernels' errors."""
+    fit = _image_fitting_module()
+    render_meta = []
+
+    def rasterization_kept(*args, **kw):
+        out = fit_rasterization(*args, **kw)
+        meta = out[2]
+        render_meta.append((meta["n_isects"], meta["isect_overflow"],
+                            meta["tiles_per_gauss"].sum(dtype=torch.int64)))
+        return out
+
+    fit_rasterization, fit.rasterization = fit.rasterization, rasterization_kept
+    reset_launches()
+    calls = {}
+    for (W, H), n, iters in ((FIT_WH, FIT_POINTS, FIT_ITERS),
+                             (FIT_BIG_WH, FIT_BIG_POINTS, FIT_BIG_ITERS)):
+        tr = fit.SimpleTrainer(fit.default_target(H, W), num_points=n, device=dev)
+        opt = fit.adam_init(tr.params)
+        what = f"image_fitting {W}x{H}, {n} points"
+        clock = StepClock(dev, what, lambda m: None)
+        render_meta.clear()
+        for it in range(iters):
+            first = FirstCalls() if it == 0 else None
+            _, opt = clock(tr.train_step, opt)
+            if first is not None:
+                calls[what] = first.restore()
+        plan = [(int(k), bool(o), int(a)) for k, o, a in render_meta]
+        if dev.type == "cuda" and n == FIT_POINTS:
+            device_profile(lambda: tr.train_step(opt), clock.records[-1]["ms"], log,
+                           "fitting_iteration")
+        ms = [r["ms"] for r in clock.records]
+        log("image_fitting " + json.dumps(dict(
+            wh=[W, H], points=n, iterations=iters, isect_capacity=max(16 * n, 1 << 14),
+            n_isects_first=plan[0][0], n_isects_last=plan[-1][0], aabb_tiles_first=plan[0][2],
+            aabb_tiles_last=plan[-1][2], overflow_iterations=sum(p[1] for p in plan),
+            first_mse=clock.records[0]["loss"],
+            last_mse=clock.records[-1]["loss"], ms_first=ms[0],
+            ms_per_iteration_after_first=sum(ms[1:]) / max(len(ms) - 1, 1),
+            peak_gib=max(r["peak_gib"] or 0.0 for r in clock.records))))
+        require(n != FIT_POINTS or clock.records[-1]["loss"] < clock.records[0]["loss"],
+                f"image_fitting {W}x{H}: the MSE did not fall")
+        del tr, opt
+    launches = read_launches()
+    fit.rasterization = fit_rasterization
+    require_kernels(launches, "image_fitting", log)
+    return launches, [check_path_kernels(c, what, timer, log) for what, c in calls.items()]
+
+
+class _StreetCamera:
+    """One camera of the in-memory NCore sequence (the protocol of
+    examples/datasets/ncore.py): the vehicle drives along +x, the camera
+    looks along +z (OpenCV axes: y down); the hood covers the bottom rows."""
+
+    def __init__(self, params, n_frames, t0, dt):
+        self.params = params
+        ts = t0 + dt * np.arange(n_frames, dtype=np.int64)
+        self.frames_timestamps_us = np.stack([ts, ts + dt // 2], axis=1)
+
+    def pose_world(self, frame_indices, timepoint):
+        shift = 0.5 if timepoint == "end" else 0.0
+        out = np.tile(np.eye(4), (len(frame_indices), 1, 1))
+        out[:, 0, 3] = 1.0 * (np.asarray(frame_indices) + shift)
+        return out
+
+    def ego_mask(self):
+        m = np.zeros((self.params.height, self.params.width), bool)
+        m[-self.params.height // 16:] = True
+        return m
+
+    def image(self, frame_idx):
+        W, H = self.params.width, self.params.height
+        yy, xx = np.mgrid[0:H, 0:W] / np.array([H, W], np.float64)[:, None, None]
+        sky = np.stack([0.55 + 0.1 * xx, 0.7 + 0.05 * yy, 0.9 - 0.1 * yy], -1)
+        road = np.stack([0.35 + 0.1 * np.sin(40 * xx + frame_idx), 0.33 + 0.05 * yy,
+                         0.3 + 0.02 * xx], -1)
+        wall = np.stack([0.6 + 0.2 * np.sin(25 * xx + 0.5 * frame_idx),
+                         0.45 + 0.1 * np.cos(30 * yy), 0.35 + 0.05 * xx], -1)
+        img = np.where((yy < 0.35)[..., None], sky, np.where((yy < 0.6)[..., None], wall, road))
+        return (img * 255).astype(np.uint8)
+
+    def frame_mask(self, frame_idx):
+        return None
+
+
+class _StreetLidar:
+    """The lidar's clouds: a wall 30 m ahead and the road below the camera,
+    textured colours, `per_frame` points at each frame's timestamp."""
+
+    def __init__(self, n_frames, per_frame, t0, dt):
+        self.pc_timestamps_us = t0 + dt * np.arange(n_frames, dtype=np.int64)
+        self.per_frame = per_frame
+
+    def pc_world(self, i):
+        rng = np.random.default_rng(SEED + i)
+        n = self.per_frame
+        h = n // 2
+        wall = np.c_[rng.uniform(-30, 30, h), rng.uniform(-12, 3, h),
+                     30 + rng.normal(0, 0.05, h)]
+        road = np.c_[rng.uniform(-30, 30, n - h), 3 + rng.normal(0, 0.02, n - h),
+                     rng.uniform(4, 30, n - h)]
+        xyz = np.concatenate([wall, road]).astype(np.float32)
+        rgb = (np.stack([0.5 + 0.3 * np.sin(xyz[:, 0]), 0.45 + 0.2 * np.cos(xyz[:, 1]),
+                         0.4 + 0.1 * np.sin(xyz[:, 2])], -1) * 255).astype(np.uint8)
+        return xyz, rgb, None
+
+
+class StreetSequence:
+    """An in-memory NCore SequenceSource (tests/test_datasets.py:_FakeSource's
+    protocol) with one camera at the AV phase's 1920x1280 and its lidar."""
+
+    sequence_id = "chip-smoke-street"
+
+    def __init__(self, wh, n_frames: int, n_points: int):
+        t0, dt = 1_000_000, 100_000
+        W, H = wh
+        f = 2055.0 * W / 1920  # about the Waymo front camera's field of view
+        self._cam = _StreetCamera(ncore_mod.PinholeParams(width=W, height=H, fx=f, fy=f,
+                                                          cx=W / 2, cy=H / 2), n_frames, t0, dt)
+        self._lidar = _StreetLidar(n_frames, n_points // n_frames, t0, dt)
+        self.time_range_us = (t0, t0 + dt * n_frames)
+        self.camera_ids = ["front"]
+        self.point_cloud_ids = ["top"]
+        self.world_to_world_global = None
+
+    def camera(self, cid):
+        return self._cam
+
+    def point_cloud_source(self, pid):
+        return self._lidar
+
+    def cuboid_tracks(self, time_range):
+        return []
+
+
+def ncore_phase(dev, timer, log):
+    """Phase 22: ncore_scene on an in-memory NCore sequence (one 1920x1280
+    camera, NCORE_FRAMES frames, a 1,000,000-point lidar cloud); one step
+    of AVRunner as built (its own scales and isect_capacity), with its
+    overflow flag; then AVRunner from the smoke's own start for NCORE_STEPS
+    steps, photometric only (no eval3d launch), the loss must not rise, and
+    the kernels held to their plain versions on its first step.  Returns
+    the launches and the kernels' errors."""
+    t0 = time.perf_counter()
+    scene = av_mod.ncore_scene(StreetSequence(NCORE_WH, NCORE_FRAMES, NCORE_POINTS),
+                               camera_ids=["front"], max_frames=NCORE_FRAMES,
+                               max_points=NCORE_POINTS)
+    n = len(scene["points"])
+    log(f"ncore: {n} gaussians, {len(scene['images'])} training frames at "
+        f"{scene['W']}x{scene['H']}, masks {scene['masks'] is not None}, "
+        f"scene in {time.perf_counter() - t0:.1f} s")
+    require(scene["lidar"] is None and scene["masks"] is not None, "ncore: scene layout")
+    result_dir = tempfile.mkdtemp(prefix="chip_smoke_ncore_")
+    cfg = dict(data="ncore", max_steps=NCORE_STEPS, cap_max=n, seed=SEED, result_dir=result_dir)
+    runner = av_mod.AVRunner(av_mod.Config(**cfg), scene, device=dev)
+    # one step as the runner is built: scales of 0.3x the distance to a
+    # random other point, the default isect_capacity
+    metas = []
+    render_cams = runner.render_cams
+
+    def render_cams_kept(*args):
+        out = render_cams(*args)
+        metas.append(out[2])
+        return out
+
+    runner.render_cams = render_cams_kept
+    StepClock(dev, "ncore as built", log)(runner.train_step, runner.prepare())
+    log("ncore as built " + json.dumps(dict(
+        isect_capacity=runner.cfg.isect_capacity, n_isects=int(metas[0]["n_isects"]),
+        isect_overflow=bool(metas[0]["isect_overflow"]))))
+    del runner, metas, render_cams, render_cams_kept
+    runner = av_mod.AVRunner(av_mod.Config(**cfg), scene, device=dev)
+    shutil.rmtree(result_dir)  # the runner writes nothing there
+    # as in the AV phase: the runner's own start is 0.3x the distance to a
+    # random other point, a third of the scene; here the points' spacing
+    spacing = math.sqrt(60 * 26 / (n / 2))  # the road's area over its points
+    runner.params["scales"].fill_(math.log(0.5 * spacing))
+    cams, Ks = runner._tensor(scene["viewmats"]), runner._tensor(scene["Ks"])
+    runner.cfg.isect_capacity = 1 << 16
+    with torch.no_grad():
+        n_cam = int(runner.render_cams(runner.params, runner.alive, cams, Ks)[2][
+            "tiles_per_gauss"].sum())
+    runner.cfg.isect_capacity = int(1.6 * n_cam) + 4096
+    log(f"ncore capacity: {n_cam} AABB slots -> isect_capacity {runner.cfg.isect_capacity}")
+    clock = StepClock(dev, "ncore", log)
+    step_fn = runner.train_step
+    calls = {}
+
+    def step(inputs):  # the kernels' arguments kept at the first step
+        first = None if calls else FirstCalls()
+        out = clock(step_fn, inputs)
+        if first is not None:
+            calls.update(first.restore())
+        return out
+
+    runner.train_step = step
+    reset_launches()
+    losses = runner.train(log=lambda m: None)
+    launches = read_launches()
+    require(len(clock.records) == NCORE_STEPS, "ncore: steps missing")
+    if dev.type == "cuda":
+        inputs = runner.prepare()
+        device_profile(lambda: step_fn(inputs), clock.records[-1]["ms"], log, "ncore_step")
+    require(losses[-1] <= losses[0], f"ncore: the loss rose: {losses}")
+    require_kernels(launches, "ncore", log)
+    for name in EVAL3D_KERNELS:
+        if name not in LAST_SLICE_KERNELS:
+            require(launches[name] == 0, f"ncore: {name} launched on the photometric path")
+    W, H = scene["W"], scene["H"]
+    return launches, check_path_kernels(calls, f"ncore, {W}x{H}, masked", timer, log)
+
+
+def last_slice_phases(dev, raw, viewmats, K, wh, timer, log):
+    """Phases 19 to 22; returns each path's launches, and for each kernel
+    its largest error against its plain version on each path's inputs."""
+    paths, errs = {}, collections.defaultdict(dict)
+    for name, fn in (("distributed", lambda: distributed_phase(dev, raw, viewmats, K, wh, timer,
+                                                               log)),
+                     ("dynamic", lambda: dynamic_phase(dev, timer, log)),
+                     ("image_fitting", lambda: image_fitting_phase(dev, timer, log)),
+                     ("ncore", lambda: ncore_phase(dev, timer, log))):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        paths[name], checks = fn()
+        for check in checks if isinstance(checks, list) else [checks]:
+            for kernel, e in check.items():
+                errs[kernel][name] = max(errs[kernel].get(name, 0.0), e)
+        log(f"elapsed: {name} took {time.perf_counter() - t0:.1f} s")
+    return paths, dict(errs)
+
+
 def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, log=print,
         train_steps: int = TRAIN_STEPS):
     """All phases on `dev`; returns the serving records, the training
@@ -3598,6 +4152,9 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     colmap_launches, addon_launches, viewer_launches = colmap_phase(dev, raw, n_cell, grid,
                                                                      (W, H), log)
     log(f"elapsed: phases 16 to 18 done at {time.perf_counter() - t0:.1f} s")
+    # Distributed rendering, the dynamic trainer, image fitting, NCore.
+    last_paths, last_errs = last_slice_phases(dev, raw, viewmats, K, (W, H), timer, log)
+    log(f"elapsed: phases 19 to 22 done at {time.perf_counter() - t0:.1f} s")
     for rec, av_rec in zip(gut_records, av_records):
         rec["max_abs_err"] = max(rec["max_abs_err"], av_rec["max_abs_err"])
         rec["av_check"] = {k: av_rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3628,11 +4185,15 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "runs")}
     records = records + train_records + surfel_records + gut_records
+    for rec in records:  # the float32 kernels on phases 19 to 22's own inputs
+        if rec["name"] in last_errs:
+            rec["last_slice_checks"] = last_errs[rec["name"]]
+            rec["max_abs_err"] = max(rec["max_abs_err"], *last_errs[rec["name"]].values())
     # each kernel's launches on every path, and on its own path as `launches`
     paths = {"serving": launches, "serving_exact": exact_launches, "training": train_launches,
              "2dgs": surfel_launches, "3dgut": gut_launches, "av": av_launches,
              "colmap": colmap_launches, "addons": addon_launches,
-             "analysis": analysis_launches, "viewer": viewer_launches}
+             "analysis": analysis_launches, "viewer": viewer_launches, **last_paths}
     for rec in records:
         rec["launches_by_path"] = {p: counts[rec["name"]] for p, counts in paths.items()}
         rec["launches"] = rec["launches_by_path"][MAIN_PATH[rec["name"]]]

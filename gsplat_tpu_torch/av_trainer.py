@@ -1,8 +1,8 @@
 """The AV trainer: joint camera and spinning-lidar supervision.
 
 Port of `examples/av_trainer.py` (Config :45-63, its `result_dir` made
-at :168, synthetic_scene :66-102,
-AVRunner :158-322) on the `synthetic` data path.  Each step renders the
+at :168, synthetic_scene :66-102, ncore_scene :104-160, AVRunner
+:158-322).  Each step renders the
 cameras through the classic rasterizer and the lidar through
 `rasterization(camera_model="lidar", with_ut=True, with_eval3d=True,
 render_mode="RGB-d")`, and minimises
@@ -16,7 +16,12 @@ regime the targets are rendered from the initial state, then the means are
 perturbed by 0.05 times a normal draw (from a `torch.Generator` seeded by
 `cfg.seed`, or the `noise` handed to `train`).  The JAX runner also builds
 an MCMC strategy state that its loop never uses; the port leaves it out.
-The `ncore` data path (NCore SDK, examples/datasets/ncore.py) is not ported.
+`ncore_scene` builds the photometric scene of an NCore sequence
+(datasets/ncore.py) from an in-memory `SequenceSource`: the gaussians
+start at the lidar cloud and the targets are the camera frames with their
+valid-pixel masks; it has no lidar, so the runner renders none (and the
+eval3d kernels do not run).  Opening an on-disk sequence needs the NCore
+SDK adapter, which is not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .losses import l1_loss, lidar_background_loss, lidar_distance_loss, ssim_loss
+from .datasets.ncore import NCoreDataset, NCoreParser
 from .optimizers.adam import adam_init, selective_adam_update
 from .rendering import rasterization
 from .sensors.lidars import SpinningDirection, make_lidar
@@ -89,6 +95,41 @@ def synthetic_scene(seed: int = 0, n_cams: int = 3, W: int = 96, H: int = 64,
     )
     return dict(points=pts, rgb=rgb, viewmats=viewmats, Ks=Ks, W=W, H=H, lidar=lidar,
                 lidar_viewmats=np.eye(4, dtype=np.float32)[None])
+
+
+def ncore_scene(source, camera_ids=None, factor: float = 1.0, max_frames: int = 8,
+                max_points: int = 100_000) -> Dict:
+    """The AV training scene of an NCore v4 sequence (numpy): `source` is an
+    in-memory SequenceSource (datasets/ncore.py); the gaussians start at the
+    lidar cloud (at most `max_points`), the targets are the first
+    `max_frames` training frames with their masks; photometric only."""
+    parser = NCoreParser(source, factor=factor, camera_ids=camera_ids,
+                         max_lidar_points=max_points, normalize_world_space=False)
+    ds = NCoreDataset(parser, split="train")
+    items = [ds[i] for i in range(min(len(ds), max_frames))]
+    viewmats = []
+    for it in items:  # world-to-camera: the rigid inverse of each pose
+        c2w = it["camtoworld"].astype(np.float64)
+        w2c = np.eye(4)
+        w2c[:3, :3] = c2w[:3, :3].T
+        w2c[:3, 3] = -c2w[:3, :3].T @ c2w[:3, 3]
+        viewmats.append(w2c.astype(np.float32))
+    W, H = parser.imsize_dict[parser.camera_ids[0]]
+    pts = parser.points
+    rgb = (parser.points_rgb.astype(np.float32) / 255.0 if len(parser.points_rgb)
+           else np.full((len(pts), 3), 0.5, np.float32))
+    return dict(
+        points=pts.astype(np.float32),
+        rgb=np.clip(rgb, 1e-3, 1 - 1e-3),
+        viewmats=np.stack(viewmats),
+        Ks=np.stack([it["K"] for it in items]),
+        W=W, H=H,
+        images=np.stack([it["image"] for it in items]),
+        masks=np.stack([it["mask"] for it in items]) if "mask" in items[0] else None,
+        lidar=None,  # photometric only: the protocol carries no range images
+        lidar_viewmats=None,
+        parser=parser,
+    )
 
 
 class AVRunner:

@@ -11,7 +11,7 @@ pure-Python binary readers here are the plain versions the tests hold the
 native ones to (tests/test_torch_io_native.py).
 
 Images: a PNG is decoded here, with zlib and numpy (8-bit gray, RGB and
-RGBA; not interlaced; the five filter types), so
+RGBA, and 16-bit gray depth maps; not interlaced; the five filter types), so
 that the card's machine needs no imaging package (`encode_png` writes one,
 and `write_model_binary` a binary model, for scenes made by a program).  Any other format goes
 through PIL; without PIL it raises an ImportError naming the file and its
@@ -182,7 +182,7 @@ def similarity_from_cameras(c2w: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels (bit depth 8 only): gray, RGB, gray+alpha, RGBA
+# PNG colour type -> channels at bit depth 8: gray, RGB, gray+alpha, RGBA
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _PNG_COLOUR_TYPES = {c: t for t, c in _PNG_CHANNELS.items()}
 
@@ -223,8 +223,9 @@ def _png_unfilter(f: np.ndarray, ftype: np.ndarray) -> np.ndarray:
 
 
 def _png_pixels(data: bytes, name: str, ctypes) -> Tuple[np.ndarray, int]:
-    """The pixels [H, W, channels] uint8 of an 8-bit, non-interlaced PNG of
-    one of the colour types `ctypes`, and its colour type."""
+    """The pixels [H, W, channels] of a non-interlaced PNG of one of the
+    colour types `ctypes` at bit depth 8 (uint8), or of a 16-bit gray PNG
+    (uint16, from big-endian samples), and its colour type."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
     pos, header, idat = 8, None, []
@@ -242,52 +243,67 @@ def _png_pixels(data: bytes, name: str, ctypes) -> Tuple[np.ndarray, int]:
     if header is None or not idat:
         raise ValueError(f"{name}: PNG without IHDR or IDAT")
     W, H, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in ctypes or interlace != 0:
+    gray16 = depth == 16 and ctype == 0
+    if not (depth == 8 or gray16) or ctype not in ctypes or interlace != 0:
         kinds = ", ".join(f"{t} ({k})" for t, k in ((0, "gray"), (2, "RGB"), (4, "gray+alpha"),
                                                     (6, "RGBA")) if t in ctypes)
         raise ValueError(f"{name}: PNG of bit depth {depth}, colour type {ctype}, interlace "
-                         f"{interlace}; decoded here: bit depth 8, colour types {kinds}, "
-                         "no interlace")
-    bpp = _PNG_CHANNELS[ctype]
+                         f"{interlace}; decoded here: bit depth 8, colour types {kinds}"
+                         f"{', and 16-bit gray' if 0 in ctypes else ''}, no interlace")
+    bpp = 2 if gray16 else _PNG_CHANNELS[ctype]  # bytes per pixel, the filters' stride
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != H * (W * bpp + 1):
         raise ValueError(f"{name}: PNG data of {raw.size} bytes for {W}x{H}x{bpp}")
     rows = raw.reshape(H, W * bpp + 1)
     if rows[:, 0].max() > 4:
         raise ValueError(f"{name}: PNG filter type {int(rows[:, 0].max())}")
-    return _png_unfilter(rows[:, 1:].reshape(H, W, bpp), rows[:, 0]), ctype
+    px = _png_unfilter(rows[:, 1:].reshape(H, W, bpp), rows[:, 0])
+    if gray16:
+        px = (px[..., :1].astype(np.uint16) << 8) | px[..., 1:]
+    return px, ctype
 
 
 def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
     """An 8-bit, non-interlaced gray, RGB or RGBA PNG as RGB uint8 [H, W, 3]
     (gray replicated, alpha dropped, as PIL's convert("RGB") does)."""
     px, ctype = _png_pixels(data, name, (0, 2, 6))
+    if px.dtype != np.uint8:
+        raise ValueError(f"{name}: a PNG of bit depth 16 is a data plane (a depth map), not "
+                         "an image; decode_png_channels reads it")
     if ctype == 0:
         return np.repeat(px, 3, axis=2)
     return np.ascontiguousarray(px[..., :3])
 
 
 def decode_png_channels(data: bytes, name: str = "<png>") -> np.ndarray:
-    """An 8-bit, non-interlaced PNG with the channels it stores, as
+    """A non-interlaced PNG with the channels it stores, as
     np.asarray(PIL.Image.open(...)) gives them: [H, W] gray, [H, W, 2]
-    gray+alpha, [H, W, 3] RGB, [H, W, 4] RGBA."""
+    gray+alpha, [H, W, 3] RGB, [H, W, 4] RGBA, uint8; and a 16-bit gray
+    PNG (a depth map) as [H, W] uint16."""
     px, ctype = _png_pixels(data, name, (0, 2, 4, 6))
     return px[..., 0] if ctype == 0 else px
 
 
 def encode_png(rgb: np.ndarray, filter_type: Optional[int] = 0, level: int = 6) -> bytes:
     """An 8-bit image [H, W] or [H, W, C] (C = 1 gray, 2 gray+alpha, 3 RGB,
-    4 RGBA) as PNG bytes, every row with `filter_type` (0 to 4), or with
-    None each row with the filter whose residuals, read as signed bytes,
-    have the least absolute sum (libpng's choice); compressed at zlib
-    `level`."""
-    img = np.ascontiguousarray(rgb, dtype=np.uint8)
-    if img.ndim == 2:
-        img = img[..., None]
+    4 RGBA), or a uint16 [H, W] image (16-bit gray, big-endian samples), as
+    PNG bytes, every row with `filter_type` (0 to 4), or with None each row
+    with the filter whose residuals, read as signed bytes, have the least
+    absolute sum (libpng's choice); compressed at zlib `level`."""
+    if rgb.dtype == np.uint16:
+        if rgb.ndim != 2:
+            raise ValueError(f"a 16-bit PNG is gray [H, W]; got shape {rgb.shape}")
+        img = np.stack([rgb >> 8, rgb & 255], axis=-1).astype(np.uint8)  # 2 bytes a pixel
+        ctype, depth = 0, 16
+    else:
+        img = np.ascontiguousarray(rgb, dtype=np.uint8)
+        if img.ndim == 2:
+            img = img[..., None]
+        ctype, depth = _PNG_COLOUR_TYPES[img.shape[2]], 8
     H, W, C = img.shape
-    ctype = _PNG_COLOUR_TYPES[C]
     if filter_type == 0:  # no predictor: the rows as they are
-        return _png_bytes(W, H, ctype, np.zeros(H, np.uint8), img.reshape(H, W * C), level)
+        return _png_bytes(W, H, ctype, np.zeros(H, np.uint8), img.reshape(H, W * C), level,
+                          depth)
     x = img.astype(np.int32)
     a = np.zeros_like(x)
     a[:, 1:] = x[:, :-1]  # left
@@ -307,20 +323,20 @@ def encode_png(rgb: np.ndarray, filter_type: Optional[int] = 0, level: int = 6) 
     else:
         ftype = np.full(H, filter_type, np.uint8)
         body = ((x - preds[filter_type]) & 255).astype(np.uint8).reshape(H, W * C)
-    return _png_bytes(W, H, ctype, ftype, body, level)
+    return _png_bytes(W, H, ctype, ftype, body, level, depth)
 
 
 def _png_bytes(W: int, H: int, ctype: int, ftype: np.ndarray, body: np.ndarray,
-               level: int) -> bytes:
-    """The PNG file of filtered rows `body` [H, W * C] uint8 with their
-    filter types `ftype` [H], compressed at zlib `level`."""
+               level: int, depth: int = 8) -> bytes:
+    """The PNG file of filtered rows `body` [H, W * bytes a pixel] uint8
+    with their filter types `ftype` [H], compressed at zlib `level`."""
     raw = np.concatenate([ftype[:, None], body], axis=1)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0))
+    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + chunk(b"IEND", b""))
 
 

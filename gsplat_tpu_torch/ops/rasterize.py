@@ -52,7 +52,10 @@ the op stays exact unless asked.
 
 `rasterize_to_pixels_fast` (rasterize.py:787-902) is the inference path:
 the same compaction and plan, the packed emission and composite, no
-autograd and no slot bounds.
+autograd and no slot bounds.  `rasterize_to_pixels_packed`
+(rasterize.py:905-1029) takes (image, gaussian) rows with their image ids
+and a live-row count, the receiver side of the distributed packed exchange;
+the rest is rasterize_to_pixels'.
 """
 
 from __future__ import annotations
@@ -92,13 +95,21 @@ class Compacted(NamedTuple):
     n_live: torch.Tensor  # [] int32 visible rows (a prefix)
 
 
-def compact_by_depth(means2d, conics, colors, opacities, radii, depths) -> Compacted:
-    """The compaction sort (rasterize.py:688-710): ties keep index order."""
-    I, N = means2d.shape[0], means2d.shape[1]
-    E = I * N
+def compact_by_depth(means2d, conics, colors, opacities, radii, depths, image_ids=None,
+                     n_live=None) -> Compacted:
+    """The compaction sort (rasterize.py:688-710): ties keep index order.
+
+    Inputs are [I, N, ...] with each row's image its index // N, or, given
+    `image_ids` ([E] int32), packed (image, gaussian) rows [E, ...] whose
+    rows at or past `n_live` are dead as well (rasterize.py:958-968: the
+    key (~alive, depth, row) is this stable sort on where(alive, depth, inf)).
+    """
+    E = means2d.shape[0] if image_ids is not None else means2d.shape[0] * means2d.shape[1]
     D = colors.shape[-1]
     rad = radii.reshape(E, 2)
     alive = (rad > 0).all(dim=-1)
+    if n_live is not None:
+        alive = alive & (torch.arange(E, device=rad.device) < n_live)
     key = torch.where(alive, depths.detach().reshape(E), float("inf"))
     _, perm = torch.sort(key, stable=True)
     take = lambda x, d: x.detach().reshape(E, d).index_select(0, perm)
@@ -109,7 +120,8 @@ def compact_by_depth(means2d, conics, colors, opacities, radii, depths) -> Compa
         conics=take(conics, 3),
         opacities=take(opacities, 1)[:, 0],
         colors=take(colors, D),
-        image_ids=(perm // N).to(torch.int32),
+        image_ids=(perm // means2d.shape[1] if image_ids is None
+                   else image_ids.index_select(0, perm)).to(torch.int32),
         n_live=alive.sum().to(torch.int32),
     )
 
@@ -374,27 +386,52 @@ class _RasterizeCore(torch.autograd.Function):
                 *([None] * 15))
 
 
-def _compact_and_plan(means2d, conics, colors, opacities, radii, depths, image_width: int,
-                      image_height: int, isect_capacity: int, tile_size: int,
-                      row_capacity: Optional[int], with_slot_bounds: bool):
-    """The compaction sort and the tight plan of rasterize_to_pixels and
-    rasterize_to_pixels_fast.  Returns (compacted gaussians, plan, their
+def _compact_and_plan(means2d, conics, colors, opacities, radii, depths, n_images: int,
+                      image_width: int, image_height: int, isect_capacity: int, tile_size: int,
+                      row_capacity: Optional[int], with_slot_bounds: bool, image_ids=None,
+                      n_live=None):
+    """The compaction sort and the tight plan of rasterize_to_pixels,
+    rasterize_to_pixels_fast and (with `image_ids`, `n_live`)
+    rasterize_to_pixels_packed.  Returns (compacted gaussians, plan, their
     field table, cap_total, tile columns, tile rows)."""
     if tile_size not in (8, 16, 32):
         raise ValueError(f"tile_size must be 8, 16 or 32, got {tile_size}")
-    I = means2d.shape[0]
     th = -(-image_height // tile_size)
     tw = -(-image_width // tile_size)
     cap_total = _round_up(isect_capacity, CH)
     if row_capacity is None:
         row_capacity = isect_capacity // 2
     row_cap = _round_up(max(row_capacity, 1), CH)
-    comp = compact_by_depth(means2d, conics, colors, opacities, radii, depths)
+    comp = compact_by_depth(means2d, conics, colors, opacities, radii, depths, image_ids, n_live)
     plan = make_tight_plan(
         comp.means2d, comp.radii, comp.conics, comp.opacities, comp.image_ids,
-        comp.n_live, I, tile_size, tw, th, cap_total, row_cap, with_slot_bounds=with_slot_bounds,
+        comp.n_live, n_images, tile_size, tw, th, cap_total, row_cap,
+        with_slot_bounds=with_slot_bounds,
     )
     return comp, plan, field_table(comp, plan.dummy), cap_total, tw, th
+
+
+def _backgrounds_and_masks(color_img, t_img, backgrounds, masks, tile_size: int,
+                           image_width: int, image_height: int):
+    """(render, render_alphas): the composite plus T times the backgrounds;
+    masked-off tiles show pure background with zero alpha."""
+    t_img = t_img[..., None]
+    render = color_img
+    render_alphas = 1.0 - t_img
+    if backgrounds is not None:
+        render = render + t_img * backgrounds[:, None, None, :]
+    if masks is not None:
+        mpix = masks.repeat_interleave(tile_size, dim=1).repeat_interleave(tile_size, dim=2)
+        mpix = mpix[:, :image_height, :image_width, None]
+        bg = (
+            backgrounds[:, None, None, :]
+            if backgrounds is not None
+            else torch.zeros((render.shape[0], 1, 1, render.shape[-1]), dtype=render.dtype,
+                             device=render.device)
+        )
+        render = torch.where(mpix, render, bg)
+        render_alphas = torch.where(mpix, render_alphas, 0.0)
+    return render, render_alphas
 
 
 def rasterize_to_pixels(
@@ -442,7 +479,7 @@ def rasterize_to_pixels(
         x.requires_grad for x in (means2d, conics, colors, opacities)
     )
     comp, plan, table, cap_total, tw, th = _compact_and_plan(
-        means2d, conics, colors, opacities, radii, depths, image_width, image_height,
+        means2d, conics, colors, opacities, radii, depths, I, image_width, image_height,
         isect_capacity, tile_size, row_capacity, with_slot_bounds=needs_grad,
     )
     if absgrad and means2d_abs is None:
@@ -454,21 +491,8 @@ def rasterize_to_pixels(
         absgrad, cap_total, tile_size, tw, th, I, image_width, image_height,
         bool(pack_payload), bool(pack_grads),
     )
-    t_img = t_img[..., None]
-    render = color_img
-    render_alphas = 1.0 - t_img
-    if backgrounds is not None:
-        render = render + t_img * backgrounds[:, None, None, :]
-    if masks is not None:
-        mpix = masks.repeat_interleave(tile_size, dim=1).repeat_interleave(tile_size, dim=2)
-        mpix = mpix[:, :image_height, :image_width, None]
-        bg = (
-            backgrounds[:, None, None, :]
-            if backgrounds is not None
-            else torch.zeros((I, 1, 1, D), dtype=render.dtype, device=render.device)
-        )
-        render = torch.where(mpix, render, bg)
-        render_alphas = torch.where(mpix, render_alphas, 0.0)
+    render, render_alphas = _backgrounds_and_masks(color_img, t_img, backgrounds, masks,
+                                                   tile_size, image_width, image_height)
 
     # conservative AABB tile counts in the caller's order
     m2 = means2d.detach().reshape(E, 2)
@@ -513,7 +537,7 @@ def rasterize_to_pixels_fast(
     {n_isects, isect_overflow})."""
     I = means2d.shape[0]
     _, plan, table, cap_total, tw, th = _compact_and_plan(
-        means2d, conics, colors, opacities, radii, depths, image_width, image_height,
+        means2d, conics, colors, opacities, radii, depths, I, image_width, image_height,
         isect_capacity, tile_size, row_capacity, with_slot_bounds=False,
     )
     *_, color_img, t_img = composite_slots(
@@ -525,6 +549,64 @@ def rasterize_to_pixels_fast(
     if backgrounds is not None:
         render = render + t_img * backgrounds[:, None, None, :]
     return render, 1.0 - t_img, {"n_isects": plan.n_isects, "isect_overflow": plan.overflow}
+
+
+def rasterize_to_pixels_packed(
+    means2d: torch.Tensor,  # [E, 2] (image, gaussian) rows; rows < n_live may be visible
+    conics: torch.Tensor,  # [E, 3]
+    colors: torch.Tensor,  # [E, D]
+    opacities: torch.Tensor,  # [E]
+    radii: torch.Tensor,  # [E, 2] int32 (0 = culled)
+    depths: torch.Tensor,  # [E]
+    image_ids: torch.Tensor,  # [E] int32 image of each row
+    n_live,  # [] int32 tensor or int: rows at or past it are dead
+    n_images: int,
+    image_width: int,
+    image_height: int,
+    isect_capacity: int,
+    backgrounds: Optional[torch.Tensor] = None,  # [n_images, D]
+    masks: Optional[torch.Tensor] = None,  # [n_images, th, tw] bool
+    tile_size: int = TILE,
+    absgrad: bool = False,
+    means2d_abs: Optional[torch.Tensor] = None,  # [E, 2]
+    row_capacity: Optional[int] = None,
+    pack_payload: Optional[bool] = None,
+    pack_grads: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+    """Rasterize packed (image, gaussian) rows (rasterize.py:905-1029).
+
+    The packed interface of upstream gsplat (`packed=True`) and the
+    receiver side of the distributed packed exchange (parallel/render.py):
+    each row carries its image in `image_ids`, and memory follows the row
+    count E, not images x gaussians.  The compaction sort takes the live
+    rows (radii > 0 and row < n_live) front to back; then the plan, the
+    emission, the sort and the composite of rasterize_to_pixels (K3, K4, K1;
+    K2 and K5 backward).  Gradients return in the caller's row layout.
+    `masks`, `backgrounds`, `absgrad` (`means2d_abs`, zeros when not given),
+    `row_capacity`, `pack_payload` and `pack_grads` act as in
+    rasterize_to_pixels.  Returns (render_colors [n_images, H, W, D],
+    render_alphas [n_images, H, W, 1], {n_isects, isect_overflow}).
+    """
+    E = means2d.shape[0]
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (means2d, conics, colors, opacities)
+    )
+    comp, plan, table, cap_total, tw, th = _compact_and_plan(
+        means2d, conics, colors, opacities, radii, depths, n_images, image_width, image_height,
+        isect_capacity, tile_size, row_capacity, with_slot_bounds=needs_grad,
+        image_ids=image_ids, n_live=n_live,
+    )
+    if absgrad and means2d_abs is None:
+        means2d_abs = means2d.new_zeros((E, 2))
+    color_img, t_img = _RasterizeCore.apply(
+        means2d, conics, colors, opacities, means2d_abs if absgrad else None,
+        table, plan.rr, plan.n_slots, comp.perm, plan.slot_bounds,
+        absgrad, cap_total, tile_size, tw, th, n_images, image_width, image_height,
+        bool(pack_payload), bool(pack_grads),
+    )
+    render, render_alphas = _backgrounds_and_masks(color_img, t_img, backgrounds, masks,
+                                                   tile_size, image_width, image_height)
+    return render, render_alphas, {"n_isects": plan.n_isects, "isect_overflow": plan.overflow}
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,9 @@ add-ons, under the JAX trainer's keys (examples/simple_trainer.py:_save,
 _load): `pose_deltas`, `bil_grids`, the appearance head's `app_*` with its
 Adam moments `amu_*`, `anu_*` and `app_opt_count`, PPISP's `isp_*`, `imu_*`,
 `inu_*` and `ppisp_opt_count`; the appearance features ride with the
-parameters as `p_features`.
+parameters as `p_features`.  `hexplane_from_numpy` and
+`deform_params_from_numpy` carry the dynamic trainer's HexPlane and deform
+network parameters (contrib/dynamic) across.
 """
 
 from __future__ import annotations
@@ -163,4 +165,32 @@ def addons_from_numpy(flat: Mapping[str, np.ndarray], *,
         nu = {k: to(flat[v + k]) if v + k in flat else zero.nu[k] for k in params}
         n = torch.tensor(int(flat[count]) if count in flat else 0, dtype=torch.int32, device=dev)
         out[name] = (params, AdamState(mu=mu, nu=nu, count=n))
+    return out
+
+
+def hexplane_from_numpy(params: Mapping[str, Any], *, device: DeviceLike = None) -> Dict[str, Any]:
+    """A HexPlane parameter dict of the JAX package (contrib/dynamic/
+    hexplane.py:hexplane_init, arrays as numpy or anything np.asarray
+    reads) as the port's, on `device` (the card by default): the grids and
+    the AABB as float32 tensors, the static entries as they are."""
+    dev = resolve_device(device)
+    to = lambda v: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+    out = dict(params)
+    out["grids"] = [[to(p) for p in scale] for scale in params["grids"]]
+    out["aabb"] = to(params["aabb"])
+    out["coo_combs"] = [tuple(int(c) for c in comb) for comb in params["coo_combs"]]
+    return out
+
+
+def deform_params_from_numpy(params: Mapping[str, Any], *,
+                             device: DeviceLike = None) -> Dict[str, Any]:
+    """The deform network's parameters of the JAX package (contrib/dynamic/
+    deformation.py:deform_network_init: {'trunk': [{'w', 'b'}], 'pos',
+    'quat', 'opacity'}) as float32 tensors on `device` (the card by
+    default)."""
+    dev = resolve_device(device)
+    to = lambda v: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+    out = {"trunk": [{k: to(v) for k, v in layer.items()} for layer in params["trunk"]]}
+    for head in ("pos", "quat", "opacity"):
+        out[head] = {k: to(v) for k, v in params[head].items()}
     return out

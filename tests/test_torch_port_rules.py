@@ -22,6 +22,8 @@ PORT_FILES = sorted((ROOT / "gsplat_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "simple_trainer_torch.py",
     ROOT / "examples" / "simple_trainer_2dgs_torch.py", ROOT / "examples" / "av_trainer_torch.py",
     ROOT / "examples" / "sample_inference_torch.py", ROOT / "examples" / "simple_viewer_torch.py",
+    ROOT / "examples" / "image_fitting_torch.py",
+    ROOT / "examples" / "dynamic_surgical_trainer_torch.py",
     ROOT / "studies" / "k3_expand_rows.py", ROOT / "studies" / "colmap_steps.py"]
 
 

@@ -94,3 +94,40 @@ def test_normalize_takes_the_jax_axis_keyword(axis):
     got = gsplat_tpu_torch.ops.normalize(torch.from_numpy(x), axis=axis, eps=1e-12).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
+
+
+@pytest.mark.parametrize("name", ["parallel", "contrib.dynamic"])
+def test_export_lists_of_the_last_modules_are_equal(name):
+    import importlib
+
+    jax_mod = importlib.import_module(f"gsplat_tpu.{name}")
+    port_mod = importlib.import_module(f"gsplat_tpu_torch.{name}")
+    assert sorted(port_mod.__all__) == sorted(jax_mod.__all__)
+    assert all(getattr(port_mod, n, None) is not None for n in port_mod.__all__)
+
+
+def test_distributed_defines_the_jax_functions():
+    """gsplat_tpu/distributed.py has no __all__: its public functions."""
+    import importlib
+    import inspect
+
+    def public(mod):
+        return {n for n, f in inspect.getmembers(mod, inspect.isfunction)
+                if f.__module__ == mod.__name__ and not n.startswith("_")}
+
+    assert public(importlib.import_module("gsplat_tpu_torch.distributed")) == public(
+        importlib.import_module("gsplat_tpu.distributed"))
+
+
+def test_port_rules_scan_the_distributed_dynamic_and_ncore_modules():
+    from test_torch_port_rules import PORT_FILES
+
+    scanned = {p.resolve() for p in PORT_FILES}
+    for rel in ("distributed.py", "parallel/__init__.py", "parallel/render.py",
+                "contrib/dynamic/hexplane.py", "contrib/dynamic/deformation.py",
+                "contrib/dynamic/regulation.py", "contrib/dynamic/strategy.py",
+                "dynamic_trainer.py", "datasets/endonerf.py", "datasets/ncore.py",
+                "datasets/normalize.py", "datasets/resize.py"):
+        assert (ROOT / "gsplat_tpu_torch" / rel).resolve() in scanned, rel
+    for rel in ("image_fitting_torch.py", "dynamic_surgical_trainer_torch.py"):
+        assert (ROOT / "examples" / rel).resolve() in scanned, rel
