@@ -39,9 +39,12 @@ Phases:
      packed with bf16-pair gradients) at 960x540 on each K1's outputs (1e-4
      of each row's largest entry, after unpacking, one bf16 ulp allowed);
      each forward kernel timed at the serving shape with CUDA events;
-  5. profile: each stage of a fast and of an exact request timed alone, and
-     a torch.profiler trace of 3 fast requests giving device time by kernel
-     and the device's busy and idle share;
+  5. profile: the fast request's ms, 3 fast requests recorded under the
+     benchmark's device-only profiler and split by the program's spans
+     (benchmark/harness/spans.py: ms a request by layer, device-busy and
+     idle ms by span, host syncs, the plan's fill), and a torch.profiler
+     trace of 3 fast requests giving device time by kernel and the device's
+     busy and idle share;
   5a. analysis, on the serving scene and request 0's camera at 3840x2160:
      the classic public pipeline (fully_fused_projection -> isect_tiles,
      its capacity from a sizing pass -> isect_offset_encode), with
@@ -314,6 +317,7 @@ from gsplat_tpu_torch.datasets import (Parser, decode_png, decode_png_channels, 
 from gsplat_tpu_torch.profile import (ProfileWorkload, compiled_hlo_contains, run_workload,
                                       save_inputs)
 from gsplat_tpu_torch.utils import synthetic_test_data, trace_pop, trace_push, trace_range
+from gsplat_tpu_torch.utils.trace import recording
 # an orbit of look-at cameras around the scene's median, as
 # examples/sample_inference.py:orbit_cameras places them
 from gsplat_tpu_torch.utils.data import orbit_cameras as look_at_cameras
@@ -588,71 +592,33 @@ def rasterizer_inputs(scene: GaussianInferenceScene, vm: np.ndarray, K: np.ndarr
                 opacities=opac[None], radii=radii, depths=depths)
 
 
-def forward_stages(scene: GaussianInferenceScene, vm, K, W: int, H: int, ts: int, cap: int,
-                   row_cap: int, packed: bool):
-    """One request's rasterizer forward, split into the named stages that
-    rendering.rasterization and ops/rasterize.py run (`packed`: the fast
-    path's packed emission and composite, else the exact path's).  The
-    stages share one state dict; run in order, they leave each kernel's
-    arguments in it ("k4" and "k4_kw", "k1" and "k1_kw", and "plan_args" for
-    K3) and the composite's output in "out".  The profile phase times each
-    alone."""
-    tw, th = -(-W // ts), -(-H // ts)
-    T = tw * th
-    st = {}
-
-    def inputs():
-        st["inp"] = rasterizer_inputs(scene, vm, K, W, H)
-
-    def compact():
-        i = st["inp"]
-        st["comp"] = rz.compact_by_depth(i["means2d"], i["conics"], i["colors"], i["opacities"],
-                                         i["radii"], i["depths"])
-
-    def plan():
-        c = st["comp"]
-        st["plan_args"] = (c.means2d, c.radii, c.conics, c.opacities, c.image_ids, c.n_live,
-                           1, ts, tw, th)
-        st["plan"] = rz.make_tight_plan(*st["plan_args"], cap, row_cap)
-
-    def table():
-        st["table"] = rz.field_table(st["comp"], st["plan"].dummy)
-
-    def emit():
-        p = st["plan"]
-        st["k4"] = (p.rr, st["table"], p.n_slots, cap, tw, T, T)
-        st["k4_kw"] = dict(packed=packed, tile_size=ts)
-        st["emitted"] = gk.expand_emission(*st["k4"], **st["k4_kw"])
-
-    def sort():
-        fields_s, bounds, st["order"] = rz.sort_slots(*st["emitted"], T)
-        st["k1"] = (fields_s, bounds, 1, ts, tw, th, W, H)
-        st["k1_kw"] = dict(packed=packed, n_channels=st["table"].shape[0] - 6)
-
-    def composite():
-        st["out"] = rk.rasterize_fwd(*st["k1"], **st["k1_kw"])
-
-    name = "packed " if packed else ""
-    return st, [("projection + SH", inputs), ("compaction sort", compact),
-                ("tight plan (incl. K3)", plan), ("field table", table),
-                (f"{name}emission K4", emit), ("slot sort + spans", sort),
-                (f"{name}composite K1", composite)]
-
-
 def kernel_inputs(scene, vm, K, W: int, H: int, ts: int, cap: int, row_cap: int,
                   packed: bool = False):
-    """Run the forward stages once; keep each kernel's arguments and output."""
-    st, stages = forward_stages(scene, vm, K, W, H, ts, cap, row_cap, packed)
-    for _, fn in stages:
-        fn()
-    plan = st["plan"]
+    """One request's rasterizer forward, step by step as rendering.rasterization
+    and ops/rasterize.py run it (`packed`: the fast path's packed emission and
+    composite, else the exact path's), keeping each kernel's arguments and
+    the composite's output."""
+    tw, th = -(-W // ts), -(-H // ts)
+    T = tw * th
+    inp = rasterizer_inputs(scene, vm, K, W, H)
+    comp = rz.compact_by_depth(inp["means2d"], inp["conics"], inp["colors"], inp["opacities"],
+                               inp["radii"], inp["depths"])
+    plan_args = (comp.means2d, comp.radii, comp.conics, comp.opacities, comp.image_ids,
+                 comp.n_live, 1, ts, tw, th)
+    plan = rz.make_tight_plan(*plan_args, cap, row_cap)
+    table = rz.field_table(comp, plan.dummy)
+    k4 = (plan.rr, table, plan.n_slots, cap, tw, T, T)
+    k4_kw = dict(packed=packed, tile_size=ts)
+    fields_s, bounds, _ = rz.sort_slots(*gk.expand_emission(*k4, **k4_kw), T)
+    k1 = (fields_s, bounds, 1, ts, tw, th, W, H)
+    k1_kw = dict(packed=packed, n_channels=table.shape[0] - 6)
+    out = rk.rasterize_fwd(*k1, **k1_kw)
     require(not bool(plan.overflow), f"kernel inputs overflow at {W}x{H} tile {ts}")
-    geo = rz.row_geometry(*st["plan_args"], row_cap)
+    geo = rz.row_geometry(*plan_args, row_cap)
     return dict(
-        inp=st["inp"], k3=(geo.gg_f, geo.gg_i, geo.n_rows, row_cap, ts, 1), k4=st["k4"],
-        k4_kw=st["k4_kw"], k1=st["k1"], k1_kw=st["k1_kw"], out=st["out"],
-        n_live=int(st["comp"].n_live), n_rows=int(geo.n_rows[0]), n_slots=int(plan.n_slots[0]),
-        n_isects=int(plan.n_isects),
+        inp=inp, k3=(geo.gg_f, geo.gg_i, geo.n_rows, row_cap, ts, 1), k4=k4, k4_kw=k4_kw,
+        k1=k1, k1_kw=k1_kw, out=out, n_live=int(comp.n_live), n_rows=int(geo.n_rows[0]),
+        n_slots=int(plan.n_slots[0]), n_isects=int(plan.n_isects),
     )
 
 
@@ -3344,7 +3310,8 @@ def live_training_part(dev, data_dir: str, log) -> None:
     names = {e.name for e in prof.events()}
     require({"chip_smoke.train_step", "chip_smoke.run_step"} <= names,
             "the trace of a training step lacks its trace_range names")
-    n_kernels = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    n_kernels = sum(e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                    for e in prof.events())
     log(f"trace of one training step: the two trace ranges and {n_kernels} kernels")
     v.close()
 
@@ -4101,22 +4068,13 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
             f"pairs evaluated, {n_slots} slots")
     del serve_in, serve_pk
 
-    # Profile: each stage of request 0 timed alone (the fast path, then the
-    # exact one), then device time by kernel of the fast request.
-    times = {}
-    for packed in (True, False):
-        _, stages = forward_stages(scene, viewmats[0], K, W, H, TILE, cap, row_cap, packed)
-        tag = "fast" if packed else "exact"
-        t_stages = {f"{tag}: {name}": timer(fn, 10) for name, fn in stages}
-        times.update(t_stages)
-        times[f"{tag}: sum of stages"] = sum(t_stages.values())
-        times[f"{tag}: whole request"] = timer(lambda: sv.request(viewmats[0], fast=packed), 10)
-    for name, ms in times.items():
-        log(json.dumps({"stage": name, "ms": ms}))
+    # Profile: one recorded fast request of view 0 split by the program's
+    # spans, then device time by kernel of the fast request.
+    request_ms = timer(lambda: sv.request(viewmats[0]), 10)
+    log(json.dumps({"stage": "fast: whole request", "ms": request_ms}))
     if dev.type == "cuda":
-        device_profile(lambda: sv.request(viewmats[0]), times["fast: whole request"], log,
-                       "request")
-    del stages
+        request_by_span(lambda: sv.request(viewmats[0]), log)
+        device_profile(lambda: sv.request(viewmats[0]), request_ms, log, "request")
 
     # The analysis surface on the serving scene: the classic pipeline, the
     # oracle, the contributing ops, sparse rasterization, the index lists.
@@ -4202,6 +4160,32 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
     return serve + serve_exact, history + surfel_history, records
 
 
+def request_by_span(request, log, n: int = 3) -> None:
+    """`n` requests under the benchmark's device-only profiler inside a
+    recording of the program's spans, joined by benchmark/harness/spans.py:
+    ms a request by layer (they sum to the traced span), device-busy and
+    idle ms by span, host syncs a request and the plan's fill."""
+    from benchmark.harness import spans as spans_mod
+
+    torch.cuda.synchronize()
+    with recording() as rec:  # counters are read at its close, after the trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time_ns()
+            for _ in range(n):
+                request()
+                torch.cuda.current_stream().synchronize()
+            t1 = time.time_ns()
+    start = prof.profiler.kineto_results.trace_start_ns()
+    split = spans_mod.attribute(prof.events(), rec.spans, rec.counters, start,
+                                ((t0 - start) / 1e3, (t1 - start) / 1e3))
+    require(abs(sum(split.layer_ms.values()) - split.window_ms) < 1e-6 * split.window_ms
+            and all(split.layer_ms[k] > 0 for k in ("project", "plan", "composite")),
+            f"a fast request's split by span is off: {split.layer_ms}")
+    log(json.dumps({"request_ms_by_layer": split.layer_ms, "request_ms": split.window_ms,
+                    "host_syncs_per_request": split.host_syncs_per_unit,
+                    "isect_fill": split.isect_fill, **spans_mod.breakdown(split)}))
+
+
 def device_profile(unit_fn, unit_ms: float, log, unit: str, n: int = 3) -> None:
     """A torch.profiler trace of `n` units of work (requests or training
     steps): device time by kernel, and the device's busy and idle share of
@@ -4215,7 +4199,9 @@ def device_profile(unit_fn, unit_ms: float, log, unit: str, n: int = 3) -> None:
             unit_fn()
         torch.cuda.synchronize()
         span_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the program's spans show on the device's timeline as user annotations
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     require(bool(kernels), "the profiler recorded no device time")
     by_name = collections.defaultdict(float)
     for e in kernels:

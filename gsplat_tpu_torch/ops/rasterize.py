@@ -69,6 +69,7 @@ from .gather_kernel import expand_emission, expand_emission_aabb, expand_rows, g
 from .projection import ALPHA_THRESHOLD
 from .rasterize_kernel import rasterize_bwd, rasterize_fwd
 from .segsum_kernel import segment_rowsum
+from ..utils.trace import count, trace_function, trace_range
 
 TILE = 16  # default tile size (pixels per side)
 CH = 512  # capacity rounding unit, as the JAX package's gather_pallas.CH
@@ -244,6 +245,9 @@ def make_tight_plan(
     total = rr_cum_in[-1]
     n_dummy = (geo.dummy & geo.prefix).sum().to(torch.int32)
     n_slots = torch.clamp(total, max=cap_total).reshape(1).to(torch.int32)
+    n_isects = total - torch.minimum(n_dummy, total)
+    count("plan.isects", n_isects)
+    count("plan.capacity", cap_total)
     slot_bounds = None
     if with_slot_bounds:
         # The emission is gaussian-major over contiguous row records, so a
@@ -260,7 +264,7 @@ def make_tight_plan(
         n_slots=n_slots,
         slot_bounds=slot_bounds,
         dummy=geo.dummy,
-        n_isects=total - torch.minimum(n_dummy, total),
+        n_isects=n_isects,
         overflow=(total > cap_total) | geo.row_overflow,
     )
 
@@ -325,18 +329,20 @@ def composite_slots(table_g, rr, n_slots, cap_total: int, tile_size: int, tile_w
     [T+1], order int64 [cap_total] or None unless `keep_order`, colors
     [I, H, W, D], T_final [I, H, W])."""
     T = n_images * tile_width * tile_height
-    keys, fields = expand_emission(
-        rr, table_g, n_slots, cap_total, tile_width, tile_width * tile_height, T,
-        packed=packed, tile_size=tile_size,
-    )
-    fields_s, bounds, order = sort_slots(keys, fields, T)
-    del keys, fields
+    with trace_range("sort"):
+        keys, fields = expand_emission(
+            rr, table_g, n_slots, cap_total, tile_width, tile_width * tile_height, T,
+            packed=packed, tile_size=tile_size,
+        )
+        fields_s, bounds, order = sort_slots(keys, fields, T)
+        del keys, fields
     if not keep_order:  # no backward will run: the composite needs no permutation
         order = None
-    pix_out, t_final = rasterize_fwd(
-        fields_s, bounds, n_images, tile_size, tile_width, tile_height, width, height,
-        packed=packed, n_channels=table_g.shape[0] - 6,
-    )
+    with trace_range("composite"):
+        pix_out, t_final = rasterize_fwd(
+            fields_s, bounds, n_images, tile_size, tile_width, tile_height, width, height,
+            packed=packed, n_channels=table_g.shape[0] - 6,
+        )
     return fields_s, bounds, order, pix_out, t_final
 
 
@@ -373,14 +379,16 @@ class _RasterizeCore(torch.autograd.Function):
     def backward(ctx, v_pix, v_t):
         fields_s, bounds, order, perm, slot_bounds, pix_out, t_final = ctx.saved_tensors
         D = ctx.modes["n_channels"]
-        v_slot = rasterize_bwd(
-            fields_s, bounds, *ctx.geometry, v_pix.contiguous(), v_t.contiguous(),
-            pix_out, t_final, **ctx.modes,
-        )
-        v_emit = unsort_slots(v_slot, order, ctx.absgrad, 6 + D)
-        del v_slot
-        vg = segment_rowsum(v_emit, slot_bounds)  # [rows, E], compaction order
-        v_gauss = unpermute_gaussians(vg, perm)
+        with trace_range("composite.bwd"):
+            v_slot = rasterize_bwd(
+                fields_s, bounds, *ctx.geometry, v_pix.contiguous(), v_t.contiguous(),
+                pix_out, t_final, **ctx.modes,
+            )
+        with trace_range("reduce.bwd"):
+            v_emit = unsort_slots(v_slot, order, ctx.absgrad, 6 + D)
+            del v_slot
+            vg = segment_rowsum(v_emit, slot_bounds)  # [rows, E], compaction order
+            v_gauss = unpermute_gaussians(vg, perm)
         v_abs = v_gauss[:, 6 + D :] if ctx.absgrad else None
         return (v_gauss[:, 0:2], v_gauss[:, 2:5], v_gauss[:, 6 : 6 + D], v_gauss[:, 5], v_abs,
                 *([None] * 15))
@@ -402,13 +410,16 @@ def _compact_and_plan(means2d, conics, colors, opacities, radii, depths, n_image
     if row_capacity is None:
         row_capacity = isect_capacity // 2
     row_cap = _round_up(max(row_capacity, 1), CH)
-    comp = compact_by_depth(means2d, conics, colors, opacities, radii, depths, image_ids, n_live)
-    plan = make_tight_plan(
-        comp.means2d, comp.radii, comp.conics, comp.opacities, comp.image_ids,
-        comp.n_live, n_images, tile_size, tw, th, cap_total, row_cap,
-        with_slot_bounds=with_slot_bounds,
-    )
-    return comp, plan, field_table(comp, plan.dummy), cap_total, tw, th
+    with trace_range("plan"):
+        comp = compact_by_depth(means2d, conics, colors, opacities, radii, depths, image_ids,
+                                n_live)
+        plan = make_tight_plan(
+            comp.means2d, comp.radii, comp.conics, comp.opacities, comp.image_ids,
+            comp.n_live, n_images, tile_size, tw, th, cap_total, row_cap,
+            with_slot_bounds=with_slot_bounds,
+        )
+        table = field_table(comp, plan.dummy)
+    return comp, plan, table, cap_total, tw, th
 
 
 def _backgrounds_and_masks(color_img, t_img, backgrounds, masks, tile_size: int,
@@ -491,25 +502,26 @@ def rasterize_to_pixels(
         absgrad, cap_total, tile_size, tw, th, I, image_width, image_height,
         bool(pack_payload), bool(pack_grads),
     )
-    render, render_alphas = _backgrounds_and_masks(color_img, t_img, backgrounds, masks,
-                                                   tile_size, image_width, image_height)
+    with trace_range("composite"):
+        render, render_alphas = _backgrounds_and_masks(color_img, t_img, backgrounds, masks,
+                                                       tile_size, image_width, image_height)
 
-    # conservative AABB tile counts in the caller's order
-    m2 = means2d.detach().reshape(E, 2)
-    rad = radii.reshape(E, 2)
-    tmean = m2 / tile_size
-    trad = rad.to(m2.dtype) / tile_size
-    tmn = torch.floor(tmean - trad).to(torch.int32)
-    tmx = torch.ceil(tmean + trad).to(torch.int32)
-    wb = torch.clamp(tmx[:, 0], 0, tw) - torch.clamp(tmn[:, 0], 0, tw)
-    hb = torch.clamp(tmx[:, 1], 0, th) - torch.clamp(tmn[:, 1], 0, th)
-    aabb_ok = (rad > 0).all(dim=-1) & (wb > 0) & (hb > 0)
-    aabb_cnt = torch.where(aabb_ok, wb * hb, 0)
+    with trace_range("plan"):  # conservative AABB tile counts in the caller's order
+        m2 = means2d.detach().reshape(E, 2)
+        rad = radii.reshape(E, 2)
+        tmean = m2 / tile_size
+        trad = rad.to(m2.dtype) / tile_size
+        tmn = torch.floor(tmean - trad).to(torch.int32)
+        tmx = torch.ceil(tmean + trad).to(torch.int32)
+        wb = torch.clamp(tmx[:, 0], 0, tw) - torch.clamp(tmn[:, 0], 0, tw)
+        hb = torch.clamp(tmx[:, 1], 0, th) - torch.clamp(tmn[:, 1], 0, th)
+        aabb_ok = (rad > 0).all(dim=-1) & (wb > 0) & (hb > 0)
+        aabb_cnt = torch.where(aabb_ok, wb * hb, 0).reshape(I, N).to(torch.int32)
 
     aux = {
         "n_isects": plan.n_isects,
         "isect_overflow": plan.overflow,
-        "tiles_per_gauss": aabb_cnt.reshape(I, N).to(torch.int32),
+        "tiles_per_gauss": aabb_cnt,
     }
     return render, render_alphas, aux
 
@@ -544,11 +556,13 @@ def rasterize_to_pixels_fast(
         table, plan.rr, plan.n_slots, cap_total, tile_size, tw, th, I, image_width,
         image_height, packed=True, keep_order=False,
     )
-    t_img = t_img[..., None]
-    render = color_img
-    if backgrounds is not None:
-        render = render + t_img * backgrounds[:, None, None, :]
-    return render, 1.0 - t_img, {"n_isects": plan.n_isects, "isect_overflow": plan.overflow}
+    with trace_range("composite"):
+        t_img = t_img[..., None]
+        render = color_img
+        if backgrounds is not None:
+            render = render + t_img * backgrounds[:, None, None, :]
+        alphas = 1.0 - t_img
+    return render, alphas, {"n_isects": plan.n_isects, "isect_overflow": plan.overflow}
 
 
 def rasterize_to_pixels_packed(
@@ -604,8 +618,9 @@ def rasterize_to_pixels_packed(
         absgrad, cap_total, tile_size, tw, th, n_images, image_width, image_height,
         bool(pack_payload), bool(pack_grads),
     )
-    render, render_alphas = _backgrounds_and_masks(color_img, t_img, backgrounds, masks,
-                                                   tile_size, image_width, image_height)
+    with trace_range("composite"):
+        render, render_alphas = _backgrounds_and_masks(color_img, t_img, backgrounds, masks,
+                                                       tile_size, image_width, image_height)
     return render, render_alphas, {"n_isects": plan.n_isects, "isect_overflow": plan.overflow}
 
 
@@ -629,6 +644,7 @@ class EmissionPlan(NamedTuple):
     overflow: torch.Tensor  # [] bool
 
 
+@trace_function("plan")
 def make_emission_plan(
     means2d: torch.Tensor,  # [I, N, 2]
     radii: torch.Tensor,  # [I, N, 2] int32
@@ -658,6 +674,9 @@ def make_emission_plan(
     cum_in = _cumsum_i32(cnt_p)
     total = cum_in[-1]
     e_ids = torch.arange(E, dtype=torch.int32, device=m2.device)
+    n_isects = cnt.sum(dtype=torch.int32)
+    count("plan.isects", n_isects)
+    count("plan.capacity", cap_total)
     return EmissionPlan(
         cnt=cnt, cum_ex=cum_in - cnt_p, cum_in=cum_in,
         tminx=torch.where(alive, tminx, 0).to(torch.int32),
@@ -665,11 +684,12 @@ def make_emission_plan(
         w_rect=torch.where(alive, torch.clamp(w, min=1), 1).to(torch.int32),
         im=torch.where(alive, e_ids // N, I).to(torch.int32),
         n_slots=torch.clamp(total, max=cap_total).reshape(1).to(torch.int32),
-        n_isects=cnt.sum(dtype=torch.int32),
+        n_isects=n_isects,
         overflow=total > cap_total,
     )
 
 
+@trace_function("plan")
 def gaussian_records(cols, keep: torch.Tensor, fill: Optional[torch.Tensor] = None):
     """The gaussian-major field table [E, R] that `expand_sort_align`
     gathers: the columns `cols` ([E, r] each) side by side, `fill` ([1, R],
@@ -686,6 +706,7 @@ def gaussian_records(cols, keep: torch.Tensor, fill: Optional[torch.Tensor] = No
     return torch.where(keep, table, 0.0 if fill is None else fill)[:, :R]
 
 
+@trace_function("sort")
 def expand_sort_align(
     records: torch.Tensor,  # [E, R] f32 gaussian-major render fields (sanitized)
     depth: torch.Tensor,  # [E] f32 sort depth (> 0 where the gaussian is live)
@@ -727,6 +748,7 @@ def expand_sort_align(
     return fields_s, bounds, order, flat
 
 
+@trace_function("reduce.bwd")
 def reduce_slot_grads(
     v_sorted: torch.Tensor,  # [R, P] per-slot gradients at the sorted positions
     order: torch.Tensor,  # [P] int64 emission slot of each sorted position

@@ -35,6 +35,7 @@ from .rasterize import (
     reduce_slot_grads,
 )
 from .rasterize2d_kernel import TILE_2D, rasterize2d_bwd, rasterize2d_fwd
+from ..utils.trace import trace_range
 
 
 class _Rasterize2DCore(torch.autograd.Function):
@@ -46,17 +47,19 @@ class _Rasterize2DCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m2f, Mf, clf, nrf, opf, densify, depthf, plan: EmissionPlan,
                 cap_total, tile_width, tile_height, n_images, width, height):
-        ok = (plan.cnt > 0)[:, None]
-        Mf = torch.where(ok, Mf, 0.0)
-        table = gaussian_records([m2f, Mf, opf[:, None], clf, nrf], ok)
-        depthf = torch.where(ok[:, 0], depthf, 0.0)
+        with trace_range("plan"):
+            ok = (plan.cnt > 0)[:, None]
+            Mf = torch.where(ok, Mf, 0.0)
+            table = gaussian_records([m2f, Mf, opf[:, None], clf, nrf], ok)
+            depthf = torch.where(ok[:, 0], depthf, 0.0)
         fields_s, bounds, order, _ = expand_sort_align(
             table, depthf, plan, cap_total, tile_width, tile_height, n_images
         )
         del table
-        pix_out, t_final, med_slot = rasterize2d_fwd(
-            fields_s, bounds, n_images, tile_width, tile_height, width, height
-        )
+        with trace_range("composite"):
+            pix_out, t_final, med_slot = rasterize2d_fwd(
+                fields_s, bounds, n_images, tile_width, tile_height, width, height
+            )
         ctx.mark_non_differentiable(med_slot)
         if any(ctx.needs_input_grad[:6]):  # else no backward will run: keep nothing
             ctx.save_for_backward(fields_s, bounds, order, plan.cum_in, plan.n_slots, Mf[:, 8],
@@ -70,13 +73,15 @@ class _Rasterize2DCore(torch.autograd.Function):
             ctx.saved_tensors
         )
         D = fields_s.shape[0] - 15
-        v_slot = rasterize2d_bwd(
-            fields_s, bounds, *ctx.geometry, v_pix.contiguous(), v_t.contiguous(), pix_out,
-            t_final, med_slot,
-        )
-        vg = reduce_slot_grads(v_slot, order, cum_in, n_slots)  # [15+D, E]
-        v_M = vg[2:11].t()
-        v_densify = torch.stack([vg[4] * w_z, vg[7] * w_z], dim=1)
+        with trace_range("composite.bwd"):
+            v_slot = rasterize2d_bwd(
+                fields_s, bounds, *ctx.geometry, v_pix.contiguous(), v_t.contiguous(), pix_out,
+                t_final, med_slot,
+            )
+        with trace_range("reduce.bwd"):
+            vg = reduce_slot_grads(v_slot, order, cum_in, n_slots)  # [15+D, E]
+            v_M = vg[2:11].t()
+            v_densify = torch.stack([vg[4] * w_z, vg[7] * w_z], dim=1)
         return (vg[0:2].t(), v_M, vg[12 : 12 + D].t(), vg[12 + D : 15 + D].t(), vg[11],
                 v_densify, *([None] * 8))
 
@@ -116,20 +121,22 @@ def rasterize_to_pixels_2dgs(
 
     plan = make_emission_plan(means2d, radii, tile_size, tw, th, cap_total)
     if densify is None:
-        densify = torch.zeros((I, N, 2), dtype=means2d.dtype, device=means2d.device)
+        with trace_range("plan"):
+            densify = torch.zeros((I, N, 2), dtype=means2d.dtype, device=means2d.device)
     pix_out, t_final, _ = _Rasterize2DCore.apply(
         means2d.reshape(E, 2), ray_transforms.reshape(E, 9), colors.reshape(E, D),
         normals.reshape(E, 3), opacities.reshape(E), densify.reshape(E, 2),
         depths.detach().reshape(E), plan, cap_total, tw, th, I, image_width, image_height,
     )
-    render = pix_out[..., :D]
-    render_n = pix_out[..., D : D + 3]
-    distort = pix_out[..., D + 3 : D + 4]
-    median = pix_out[..., D + 4 : D + 5]
-    t_img = t_final[..., None]
-    alphas = 1.0 - t_img
-    if backgrounds is not None:
-        render = render + t_img * backgrounds[:, None, None, :]
+    with trace_range("composite"):
+        render = pix_out[..., :D]
+        render_n = pix_out[..., D : D + 3]
+        distort = pix_out[..., D + 3 : D + 4]
+        median = pix_out[..., D + 4 : D + 5]
+        t_img = t_final[..., None]
+        alphas = 1.0 - t_img
+        if backgrounds is not None:
+            render = render + t_img * backgrounds[:, None, None, :]
     aux: Dict[str, Any] = {
         "n_isects": plan.n_isects,
         "isect_overflow": plan.overflow,

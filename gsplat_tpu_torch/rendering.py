@@ -42,6 +42,7 @@ from .sensors.params import (
     UnscentedTransformParameters,
 )
 from .utils.geometry import depth_to_normal
+from .utils.trace import backward_phase, trace_range
 
 _COLOR_MODES = {"RGB", "RGB-d", "RGB-Ed", "RGB+D", "RGB+ED"}
 _DEPTH_MODES = {"D", "ED", "RGB+D", "RGB+ED"}
@@ -258,97 +259,108 @@ def rasterization(
     N = means.shape[-2]
     I = B * C
 
-    # Degenerate-input sanitization: rows with non-finite inputs or a zero
-    # quaternion become a safe zero-opacity gaussian before any math.
-    ok_in = torch.isfinite(means).all(dim=-1)
-    if quats is not None:
-        ok_in &= torch.isfinite(quats).all(dim=-1)
-        ok_in &= torch.sum(quats * quats, dim=-1) > 1e-24
-    if scales is not None:
-        ok_in &= torch.isfinite(scales).all(dim=-1)
-    if covars is not None:
-        ok_in &= torch.isfinite(covars.reshape(covars.shape[: means.dim() - 1] + (-1,))).all(dim=-1)
-    ok_in &= torch.isfinite(opacities)
-    okc = ok_in[..., None]
-    means = torch.where(okc, means, 0.0)
-    if quats is not None:
-        unit_q = torch.zeros_like(quats)
-        unit_q[..., 0] = 1.0
-        quats = torch.where(okc, quats, unit_q)
-    if scales is not None:
-        scales = torch.where(okc, scales, 1.0)
-    if covars is not None:
-        if covars.shape[-2:] == (3, 3):
-            eye = torch.eye(3, dtype=covars.dtype, device=covars.device).expand(covars.shape)
-            covars = torch.where(okc[..., None], covars, eye)
-        else:
-            eye = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=covars.dtype,
-                               device=covars.device)
-            covars = torch.where(okc, covars, eye)
-    opacities = torch.where(ok_in, opacities, 0.0)  # 0 < 1/255 -> culled
-
-    calc_compensations = rasterize_mode == "antialiased"
-    if with_ut:
-        # sigma points through the nonlinear camera model
-        radii, means2d, depths, conics, compensations = fully_fused_projection_ut(
-            means, quats, scales, opacities, viewmats, Ks, width, height, eps2d=eps2d,
-            near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
-            calc_compensations=calc_compensations, camera_model=camera_model,
-            ut_params=ut_params, radial_coeffs=radial_coeffs,
-            tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
-            ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
-            viewmats_rs=viewmats_rs, lidar_coeffs=lidar_coeffs, global_z_order=global_z_order,
-            external_distortion=external_distortion,
-        )
-    else:
-        radii, means2d, depths, conics, compensations = fully_fused_projection(
-            means, covars, quats, scales, viewmats, Ks, width, height, eps2d=eps2d,
-            near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
-            calc_compensations=calc_compensations, camera_model=camera_model,
-            opacities=opacities,
-        )
-
-    radii_f = radii.reshape(I, N, 2)
-    means2d_f = means2d.reshape(I, N, 2)
-    depths_f = depths.reshape(I, N)
-    conics_f = conics.reshape(I, N, 3)
-    op = opacities[..., None, :].expand(batch_dims + (C, N)).reshape(I, N)
-    if calc_compensations:
-        op = op * compensations.reshape(I, N)
-
-    def sh_feats(degree, coeffs):
-        campos = _campos_from_viewmats(viewmats)  # [..., C, 3]
-        dirs = means[..., None, :, :] - campos[..., None, :]  # [..., C, N, 3]
-        return spherical_harmonics(degree, dirs, coeffs, masks=(radii > 0).all(dim=-1))
-
-    n_extra = 0
-    if has_color:
-        if sh_degree is not None:
-            feats = torch.clamp(sh_feats(sh_degree, colors) + 0.5, min=0.0)
-            feats_f = feats.reshape(I, N, -1)
-        else:
-            feats_f = _broadcast_feats(colors, batch_dims, C, N, I)
-        if extra_signals is not None:
-            if extra_signals_sh_degree is not None:
-                # signed channels: no clamp, unlike the colors
-                ex_f = (sh_feats(extra_signals_sh_degree, extra_signals) + 0.5).reshape(I, N, -1)
+    with trace_range("project"):
+        # Degenerate-input sanitization: rows with non-finite inputs or a zero
+        # quaternion become a safe zero-opacity gaussian before any math.
+        ok_in = torch.isfinite(means).all(dim=-1)
+        if quats is not None:
+            ok_in &= torch.isfinite(quats).all(dim=-1)
+            ok_in &= torch.sum(quats * quats, dim=-1) > 1e-24
+        if scales is not None:
+            ok_in &= torch.isfinite(scales).all(dim=-1)
+        if covars is not None:
+            flat = covars.reshape(covars.shape[: means.dim() - 1] + (-1,))
+            ok_in &= torch.isfinite(flat).all(dim=-1)
+        ok_in &= torch.isfinite(opacities)
+        okc = ok_in[..., None]
+        means = torch.where(okc, means, 0.0)
+        if quats is not None:
+            unit_q = torch.zeros_like(quats)
+            unit_q[..., 0] = 1.0
+            quats = torch.where(okc, quats, unit_q)
+        if scales is not None:
+            scales = torch.where(okc, scales, 1.0)
+        if covars is not None:
+            if covars.shape[-2:] == (3, 3):
+                eye = torch.eye(3, dtype=covars.dtype, device=covars.device).expand(covars.shape)
+                covars = torch.where(okc[..., None], covars, eye)
             else:
-                ex_f = _broadcast_feats(extra_signals, batch_dims, C, N, I)
-            n_extra = ex_f.shape[-1]
-            feats_f = torch.cat([feats_f, ex_f], dim=-1)
-        if has_depth:
-            feats_f = torch.cat([feats_f, depths_f[..., None]], dim=-1)
-    else:
-        if extra_signals is not None:
-            raise ValueError("extra_signals require a color render mode")
-        feats_f = depths_f[..., None]
-    D_out = feats_f.shape[-1]
+                eye = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=covars.dtype,
+                                   device=covars.device)
+                covars = torch.where(okc, covars, eye)
+        opacities = torch.where(ok_in, opacities, 0.0)  # 0 < 1/255 -> culled
 
-    bg_f = None
-    if backgrounds is not None:
-        bg_f = backgrounds.expand(batch_dims + (C, backgrounds.shape[-1])).reshape(I, -1)
-        if bg_f.shape[-1] < D_out:  # zero background for the depth channel
-            bg_f = torch.nn.functional.pad(bg_f, (0, D_out - bg_f.shape[-1]))
+        calc_compensations = rasterize_mode == "antialiased"
+        if with_ut:
+            # sigma points through the nonlinear camera model
+            radii, means2d, depths, conics, compensations = fully_fused_projection_ut(
+                means, quats, scales, opacities, viewmats, Ks, width, height, eps2d=eps2d,
+                near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+                calc_compensations=calc_compensations, camera_model=camera_model,
+                ut_params=ut_params, radial_coeffs=radial_coeffs,
+                tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
+                ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
+                viewmats_rs=viewmats_rs, lidar_coeffs=lidar_coeffs, global_z_order=global_z_order,
+                external_distortion=external_distortion,
+            )
+        else:
+            radii, means2d, depths, conics, compensations = fully_fused_projection(
+                means, covars, quats, scales, viewmats, Ks, width, height, eps2d=eps2d,
+                near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+                calc_compensations=calc_compensations, camera_model=camera_model,
+                opacities=opacities,
+            )
+
+        radii_f = radii.reshape(I, N, 2)
+        means2d_f = means2d.reshape(I, N, 2)
+        depths_f = depths.reshape(I, N)
+        conics_f = conics.reshape(I, N, 3)
+        op = opacities[..., None, :].expand(batch_dims + (C, N)).reshape(I, N)
+        if calc_compensations:
+            op = op * compensations.reshape(I, N)
+
+        def sh_feats(degree, coeffs):
+            with trace_range("project.sh"):
+                campos = _campos_from_viewmats(viewmats)  # [..., C, 3]
+                dirs = means[..., None, :, :] - campos[..., None, :]  # [..., C, N, 3]
+                return spherical_harmonics(degree, dirs, coeffs, masks=(radii > 0).all(dim=-1))
+
+        n_extra = 0
+        if has_color:
+            if sh_degree is not None:
+                feats = torch.clamp(sh_feats(sh_degree, colors) + 0.5, min=0.0)
+                feats_f = feats.reshape(I, N, -1)
+            else:
+                feats_f = _broadcast_feats(colors, batch_dims, C, N, I)
+            if extra_signals is not None:
+                if extra_signals_sh_degree is not None:
+                    # signed channels: no clamp, unlike the colors
+                    ex_f = (sh_feats(extra_signals_sh_degree, extra_signals) + 0.5).reshape(
+                        I, N, -1)
+                else:
+                    ex_f = _broadcast_feats(extra_signals, batch_dims, C, N, I)
+                n_extra = ex_f.shape[-1]
+                feats_f = torch.cat([feats_f, ex_f], dim=-1)
+            if has_depth:
+                feats_f = torch.cat([feats_f, depths_f[..., None]], dim=-1)
+        else:
+            if extra_signals is not None:
+                raise ValueError("extra_signals require a color render mode")
+            feats_f = depths_f[..., None]
+        D_out = feats_f.shape[-1]
+
+        bg_f = None
+        if backgrounds is not None:
+            bg_f = backgrounds.expand(batch_dims + (C, backgrounds.shape[-1])).reshape(I, -1)
+            if bg_f.shape[-1] < D_out:  # zero background for the depth channel
+                bg_f = torch.nn.functional.pad(bg_f, (0, D_out - bg_f.shape[-1]))
+        m2_render, m2_abs = means2d_f, None
+        if means2d_offset is not None:
+            off = means2d_offset.reshape(I, N, 2)
+            if absgrad:
+                m2_abs = off  # its gradient becomes the AbsGS gradient
+            else:
+                m2_render = means2d_f + off  # its gradient is the screen-space gradient
 
     th = -(-height // tile_size)
     tw = -(-width // tile_size)
@@ -408,14 +420,7 @@ def rasterization(
             meta["render_extra_signals"] = render_extra
         return render_colors, render_alphas, meta
 
-    m2_render, m2_abs = means2d_f, None
-    if means2d_offset is not None:
-        off = means2d_offset.reshape(I, N, 2)
-        if absgrad:
-            m2_abs = off  # its gradient becomes the AbsGS gradient
-        else:
-            m2_render = means2d_f + off  # its gradient is the screen-space gradient
-
+    backward_phase("project.bwd", m2_render, conics_f, feats_f, op)
     if fast:
         if absgrad or masks_f is not None:
             raise ValueError("fast=True is inference-only: absgrad/masks unsupported")
@@ -439,15 +444,17 @@ def rasterization(
             pack_payload=pack_payload, pack_grads=pack_grads,
         )
 
-    if render_mode_has_expected_depth(render_mode):
-        depth_ch = render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)
-        render_colors = torch.cat([render_colors[..., :-1], depth_ch], dim=-1)
+    with trace_range("composite"):
+        if render_mode_has_expected_depth(render_mode):
+            depth_ch = render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)
+            render_colors = torch.cat([render_colors[..., :-1], depth_ch], dim=-1)
 
-    out_shape = batch_dims + (C, height, width)
-    render_colors = render_colors.reshape(out_shape + (D_out,))
-    render_alphas = render_alphas.reshape(out_shape + (1,))
+        out_shape = batch_dims + (C, height, width)
+        render_colors = render_colors.reshape(out_shape + (D_out,))
+        render_alphas = render_alphas.reshape(out_shape + (1,))
 
-    render_colors, render_extra = _split_extra(render_colors, n_extra, has_depth)
+        render_colors, render_extra = _split_extra(render_colors, n_extra, has_depth)
+    backward_phase("composite.bwd", render_colors, render_alphas, render_extra)
 
     meta = {
         "batch_ids": None,
@@ -532,48 +539,58 @@ def rasterization_2dgs(
     C = viewmats.shape[-3]
     N = means.shape[-2]
 
-    radii, means2d, depths, ray_transforms, normals = fully_fused_projection_2dgs(
-        means, quats, scales, viewmats, Ks, width, height, near_plane=near_plane,
-        far_plane=far_plane,
-    )
-    op = opacities[None].expand(C, N)
-    if has_color:
-        if sh_degree is not None:
-            dirs = means[None, :, :] - _campos_from_viewmats(viewmats)[:, None, :]
-            feats = spherical_harmonics(sh_degree, dirs, colors, masks=(radii > 0).all(dim=-1))
-            feats = torch.clamp(feats + 0.5, min=0.0)
+    with trace_range("project"):
+        radii, means2d, depths, ray_transforms, normals = fully_fused_projection_2dgs(
+            means, quats, scales, viewmats, Ks, width, height, near_plane=near_plane,
+            far_plane=far_plane,
+        )
+        op = opacities[None].expand(C, N)
+        if has_color:
+            if sh_degree is not None:
+                with trace_range("project.sh"):
+                    dirs = means[None, :, :] - _campos_from_viewmats(viewmats)[:, None, :]
+                    feats = spherical_harmonics(sh_degree, dirs, colors,
+                                                masks=(radii > 0).all(dim=-1))
+                    feats = torch.clamp(feats + 0.5, min=0.0)
+            else:
+                feats = (colors[None] if colors.dim() == 2 else colors).expand(
+                    C, N, colors.shape[-1])
+            feats = torch.cat([feats, depths[..., None]], dim=-1)
         else:
-            feats = (colors[None] if colors.dim() == 2 else colors).expand(C, N, colors.shape[-1])
-        feats = torch.cat([feats, depths[..., None]], dim=-1)
-    else:
-        feats = depths[..., None]
-    D_out = feats.shape[-1]
+            feats = depths[..., None]
+        D_out = feats.shape[-1]
 
-    if isect_capacity is None:
-        isect_capacity = _round_up(max(4 * C * N, DEFAULT_CHUNK), DEFAULT_CHUNK)
-    bg = backgrounds
-    if bg is not None and bg.shape[-1] < D_out:
-        bg = torch.nn.functional.pad(bg, (0, D_out - bg.shape[-1]))
+        if isect_capacity is None:
+            isect_capacity = _round_up(max(4 * C * N, DEFAULT_CHUNK), DEFAULT_CHUNK)
+        bg = backgrounds
+        if bg is not None and bg.shape[-1] < D_out:
+            bg = torch.nn.functional.pad(bg, (0, D_out - bg.shape[-1]))
+        rt = ray_transforms.reshape(C, N, 9)
 
+    backward_phase("project.bwd", means2d, rt, feats, normals, op)
     render, alphas, render_n, distort, median, aux = rasterize_to_pixels_2dgs(
-        means2d, ray_transforms.reshape(C, N, 9), feats, normals, op, width, height, radii,
+        means2d, rt, feats, normals, op, width, height, radii,
         depths, isect_capacity, backgrounds=bg, tile_size=tile_size, densify=densify,
     )
-    if render_mode_has_expected_depth(render_mode):
-        depth_ch = render[..., -1:] / torch.clamp(alphas, min=1e-10)
-        render = torch.cat([render[..., :-1], depth_ch], dim=-1)
-    render_full = render
-    if has_color and not has_depth:
-        render = render[..., :-1]
+    with trace_range("composite"):
+        if render_mode_has_expected_depth(render_mode):
+            depth_ch = render[..., -1:] / torch.clamp(alphas, min=1e-10)
+            render = torch.cat([render[..., :-1], depth_ch], dim=-1)
+        render_full = render
+        if has_color and not has_depth:
+            render = render[..., :-1]
 
-    # the rendered normals are in the camera frame: R_cw^T n, elementwise
-    R_cw = viewmats[..., :3, :3]  # [C, 3, 3]
-    render_normals = (R_cw[:, None, None, :, :] * render_n[..., :, None]).sum(dim=-2)
+        # the rendered normals are in the camera frame: R_cw^T n, elementwise
+        R_cw = viewmats[..., :3, :3]  # [C, 3, 3]
+        render_normals = (R_cw[:, None, None, :, :] * render_n[..., :, None]).sum(dim=-2)
 
-    normals_from_depth = None
-    if has_color and has_depth:
-        depth_for_normal = median if depth_mode == "median" else render_full[..., -1:]
-        normals_from_depth = depth_to_normal(depth_for_normal, torch.linalg.inv(viewmats), Ks)
+        normals_from_depth = None
+        if has_color and has_depth:
+            depth_for_normal = median if depth_mode == "median" else render_full[..., -1:]
+            normals_from_depth = depth_to_normal(depth_for_normal, torch.linalg.inv(viewmats),
+                                                 Ks)
+    backward_phase("composite.bwd", render, alphas, render_normals, normals_from_depth,
+                   distort, median)
 
     meta = {
         "radii": radii,

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..utils.trace import trace_function, trace_range
 from .components import GaussianScene, Scene
 
 _SH_COMPRESSION = ("none", "16b")
@@ -134,6 +135,7 @@ class GaussianInferenceScene(Scene):
 
 
 @torch.no_grad()
+@trace_function("serve.request")
 def render_scene(
     scene: GaussianInferenceScene,
     *,
@@ -162,14 +164,21 @@ def render_scene(
         raise TypeError(f"render_scene requires a GaussianInferenceScene; got {type(scene).__name__}")
     if scene.is_empty:
         raise ValueError(f"scene {scene.id!r} has been released")
-    f32 = lambda name: scene.get(name).to(torch.float32)
     dev = scene.get("means").device
-    viewmat = torch.as_tensor(viewmat, dtype=torch.float32, device=dev)
-    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    if viewmat.dim() == 2:
-        viewmat = viewmat[None]
-    if K.dim() == 2:
-        K = K[None]
+    with trace_range("project"):
+        viewmat = torch.as_tensor(viewmat, dtype=torch.float32, device=dev)
+        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        if viewmat.dim() == 2:
+            viewmat = viewmat[None]
+        if K.dim() == 2:
+            K = K[None]
+
+    # each unpacked tensor goes straight into the call, which then holds the
+    # only reference and frees it once sanitised
+    @trace_function("project")
+    def f32(name):
+        return scene.get(name).to(torch.float32)
+
     render, alphas, meta = rasterization(
         f32("means"), f32("quats"), f32("scales"), f32("opacities"), f32("colors"),
         viewmat, K, width, height, sh_degree=scene.sh_degree, render_mode=render_mode,

@@ -92,6 +92,7 @@ from .scene.convert import (
     train_state_to_numpy,
 )
 from .strategy import DefaultStrategy, MCMCStrategy
+from .utils.trace import backward_phase, trace_function, trace_range
 from .training import (
     apply_appearance,
     apply_pose_deltas,
@@ -433,17 +434,19 @@ class Trainer:
         """Colours [C, H, W, 3], alphas and meta.  With `app` (the appearance
         head's parameters), the colours are sigmoid(head + sh0) per camera,
         the embeddings of `cam_ids` (None: the zero embedding), not SH."""
-        op = torch.where(alive, torch.sigmoid(params["opacities"]), 0.0)
-        if app is not None:
-            cam_pos = invert_se3(viewmats)[:, :3, 3]  # [C, 3]
-            dirs = params["means"][None, :, :] - cam_pos[:, None, :]
-            adj = apply_appearance(app, params["features"], cam_ids, dirs, sh_degree)
-            colors = torch.sigmoid(adj + params["sh0"][None, :, 0, :])  # [C, N, 3]
-            sh_degree = None
-        else:
-            colors = torch.cat([params["sh0"], params["shN"]], dim=1)
+        with trace_range("project"):
+            op = torch.where(alive, torch.sigmoid(params["opacities"]), 0.0)
+            if app is not None:
+                cam_pos = invert_se3(viewmats)[:, :3, 3]  # [C, 3]
+                dirs = params["means"][None, :, :] - cam_pos[:, None, :]
+                adj = apply_appearance(app, params["features"], cam_ids, dirs, sh_degree)
+                colors = torch.sigmoid(adj + params["sh0"][None, :, 0, :])  # [C, N, 3]
+                sh_degree = None
+            else:
+                colors = torch.cat([params["sh0"], params["shN"]], dim=1)
+            scales = torch.exp(params["scales"])
         return rasterization(
-            params["means"], params["quats"], torch.exp(params["scales"]), op, colors,
+            params["means"], params["quats"], scales, op, colors,
             viewmats, Ks, self.width, self.height, sh_degree=sh_degree,
             near_plane=self.cfg.near_plane, far_plane=self.cfg.far_plane,
             isect_capacity=self.cfg.isect_capacity,
@@ -467,33 +470,35 @@ class Trainer:
         cfg = self.cfg
         addons = addons or {}
         if "pose" in addons:
-            c2w = apply_pose_deltas(invert_se3(viewmats), addons["pose"][cam_ids])
-            viewmats = invert_se3(c2w)
+            with trace_range("project"):
+                c2w = apply_pose_deltas(invert_se3(viewmats), addons["pose"][cam_ids])
+                viewmats = invert_se3(c2w)
         colors, _, meta = self.render(params, alive, viewmats, Ks, sh_degree, offset=offset,
                                       absgrad=self.absgrad, app=addons.get("app"),
                                       cam_ids=cam_ids)
-        if "bil" in addons:
-            colors = torch.stack([bilateral_slice_image(g, im)[0]
-                                  for g, im in zip(addons["bil"][cam_ids], colors)])
-        if "pp" in addons:
-            colors = apply_ppisp(addons["pp"], colors, torch.zeros_like(cam_ids), cam_ids)
-        colors = torch.clamp(colors, 0.0, 1.0)
-        loss = l1_loss(colors, pixels) * (1.0 - cfg.ssim_lambda)
-        loss = loss + ssim_loss(colors, pixels) * cfg.ssim_lambda
-        if "bil" in addons and cfg.tv_reg > 0:
-            loss = loss + cfg.tv_reg * total_variation_loss(addons["bil"])
-        if cfg.opacity_reg > 0:
-            loss = loss + cfg.opacity_reg * torch.mean(
-                torch.where(alive, torch.sigmoid(params["opacities"]), 0.0))
-        if cfg.scale_reg > 0:
-            loss = loss + cfg.scale_reg * torch.mean(
-                torch.where(alive[:, None], torch.exp(params["scales"]), 0.0))
-        if "pose" in addons and cfg.pose_opt_reg > 0:
-            loss = loss + cfg.pose_opt_reg * torch.sum(addons["pose"] ** 2)
-        if "app" in addons and cfg.app_opt_reg > 0:
-            loss = loss + cfg.app_opt_reg * torch.sum(addons["app"]["embeds"] ** 2)
-        if "pp" in addons and cfg.ppisp_reg > 0:
-            loss = loss + cfg.ppisp_reg * ppisp_regularization(addons["pp"])
+        with trace_range("loss"):
+            if "bil" in addons:
+                colors = torch.stack([bilateral_slice_image(g, im)[0]
+                                      for g, im in zip(addons["bil"][cam_ids], colors)])
+            if "pp" in addons:
+                colors = apply_ppisp(addons["pp"], colors, torch.zeros_like(cam_ids), cam_ids)
+            colors = torch.clamp(colors, 0.0, 1.0)
+            loss = l1_loss(colors, pixels) * (1.0 - cfg.ssim_lambda)
+            loss = loss + ssim_loss(colors, pixels) * cfg.ssim_lambda
+            if "bil" in addons and cfg.tv_reg > 0:
+                loss = loss + cfg.tv_reg * total_variation_loss(addons["bil"])
+            if cfg.opacity_reg > 0:
+                loss = loss + cfg.opacity_reg * torch.mean(
+                    torch.where(alive, torch.sigmoid(params["opacities"]), 0.0))
+            if cfg.scale_reg > 0:
+                loss = loss + cfg.scale_reg * torch.mean(
+                    torch.where(alive[:, None], torch.exp(params["scales"]), 0.0))
+            if "pose" in addons and cfg.pose_opt_reg > 0:
+                loss = loss + cfg.pose_opt_reg * torch.sum(addons["pose"] ** 2)
+            if "app" in addons and cfg.app_opt_reg > 0:
+                loss = loss + cfg.app_opt_reg * torch.sum(addons["app"]["embeds"] ** 2)
+            if "pp" in addons and cfg.ppisp_reg > 0:
+                loss = loss + cfg.ppisp_reg * ppisp_regularization(addons["pp"])
         return loss, meta
 
     def train_step(self, params, alive, viewmats, Ks, pixels, sh_degree: int, step: int = 0,
@@ -522,7 +527,9 @@ class Trainer:
         kw = dict(cam_ids=cam_ids.long(), addons=a_leaves) if a_leaves else {}
         loss, meta = self.loss_fn(leaves, alive, viewmats, Ks, pixels, sh_degree, offset=offset,
                                   step=step, **kw)
-        loss.backward()
+        with trace_range("backward"):
+            backward_phase("loss.bwd", loss)
+            loss.backward()
         # a leaf the loss does not reach (shN under the appearance head) gets zeros
         grad = lambda v: v.grad if v.grad is not None else torch.zeros_like(v)
         grads = {k: grad(v) for k, v in leaves.items()}
@@ -533,6 +540,7 @@ class Trainer:
         return (loss.detach(), grads, offset.grad, radii, visibility, meta["isect_overflow"],
                 a_grads)
 
+    @trace_function("optimizer")
     def update(self, params, opt_state: AdamState, grads, visibility, lr_scale_means: float):
         """Clip (if configured) and take the selective Adam step, in place."""
         clip = float(self.cfg.grad_clip)
@@ -544,6 +552,7 @@ class Trainer:
         lrs_t["means"] = self.lrs["means"] * lr_scale_means
         return selective_adam_update(params, grads, opt_state, lrs_t, visibility=visibility)
 
+    @trace_function("optimizer")
     def update_addons(self, grads: Mapping[str, Any]) -> None:
         """One plain Adam step of each add-on in `grads` (as
         `train_step_addons` returns them), in place, at the JAX trainer's
@@ -568,6 +577,7 @@ class Trainer:
     def sh_degree_at(self, step: int) -> int:
         return min(step // self.cfg.sh_degree_interval, self.cfg.sh_degree)
 
+    @trace_function("train.step")
     def run_step(self, step: int, view_ids: np.ndarray, viewmats, Ks, pixels) -> Dict[str, Any]:
         """One whole training step on the views `view_ids` of the train set
         (`viewmats`, `Ks`, `pixels` hold every train view): forward, backward,
@@ -590,23 +600,25 @@ class Trainer:
         moments = (self.opt_state.mu, self.opt_state.nu)
         refined = self.strategy.should_refine(step)
         reset = noised = False
-        if isinstance(self.strategy, DefaultStrategy):
-            self.strategy.update_state(self.strategy_state, g_screen, radii, self.width,
-                                       self.height, len(view_ids))
-            if refined:
-                self.params, moments, self.alive, _ = self.strategy.refine(
-                    self.params, moments, self.alive, self.strategy_state, step, self.generator)
-            reset = self.strategy.should_reset_opa(step)
-            if reset:
-                self.params, moments = self.strategy.reset_opa(self.params, moments)
-        else:
-            if refined:
-                self.params, moments, self.alive = self.strategy.refine(
-                    self.params, moments, self.alive, self.strategy_state, self.generator)
-            noised = self.strategy.should_inject_noise(step)
-            if noised:
-                self.params = self.strategy.inject_noise(
-                    self.params, self.alive, self.lrs["means"] * lr_scale, self.generator)
+        with trace_range("strategy"):
+            if isinstance(self.strategy, DefaultStrategy):
+                self.strategy.update_state(self.strategy_state, g_screen, radii, self.width,
+                                           self.height, len(view_ids))
+                if refined:
+                    self.params, moments, self.alive, _ = self.strategy.refine(
+                        self.params, moments, self.alive, self.strategy_state, step,
+                        self.generator)
+                reset = self.strategy.should_reset_opa(step)
+                if reset:
+                    self.params, moments = self.strategy.reset_opa(self.params, moments)
+            else:
+                if refined:
+                    self.params, moments, self.alive = self.strategy.refine(
+                        self.params, moments, self.alive, self.strategy_state, self.generator)
+                noised = self.strategy.should_inject_noise(step)
+                if noised:
+                    self.params = self.strategy.inject_noise(
+                        self.params, self.alive, self.lrs["means"] * lr_scale, self.generator)
         self.opt_state = self.opt_state._replace(mu=moments[0], nu=moments[1])
         return dict(step=step, view=int(view_ids[0]), sh_degree=sh_degree, loss=loss,
                     overflow=overflow, refined=refined, reset=reset, noised=noised)

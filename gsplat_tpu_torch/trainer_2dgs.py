@@ -41,6 +41,7 @@ from ._device import DeviceLike
 from .losses import l1_loss, normal_cosine_loss, ssim_loss
 from .rendering import rasterization_2dgs
 from .trainer import Config, Trainer
+from .utils.trace import trace_range
 
 # the 3DGS step's add-ons, which the surfel step does not take
 ADDONS = ("pose_opt", "app_opt", "bilateral_grid", "ppisp")
@@ -74,19 +75,21 @@ class Trainer2DGS(Trainer):
         holds the world-frame normals, the normals from depth and the
         distortion.  `app` and `cam_ids` are the 3DGS render's arguments,
         always None here (no add-on)."""
-        idx = torch.nonzero(alive)[:, 0]
-        take = lambda k: params[k].index_select(0, idx)
+        with trace_range("project"):
+            idx = torch.nonzero(alive)[:, 0]
+            take = lambda k: params[k].index_select(0, idx)
+            rows = (take("means"), take("quats"), torch.exp(take("scales")),
+                    torch.sigmoid(take("opacities")), torch.cat([take("sh0"), take("shN")], dim=1))
+            densify = None if offset is None else offset.index_select(1, idx)
         render, alphas, normals, nfd, distort, _, meta = rasterization_2dgs(
-            take("means"), take("quats"), torch.exp(take("scales")),
-            torch.sigmoid(take("opacities")), torch.cat([take("sh0"), take("shN")], dim=1),
-            viewmats, Ks, self.width, self.height, sh_degree=sh_degree,
+            *rows, viewmats, Ks, self.width, self.height, sh_degree=sh_degree,
             near_plane=self.cfg.near_plane, far_plane=self.cfg.far_plane, render_mode="RGB+ED",
-            isect_capacity=self.cfg.isect_capacity,
-            densify=None if offset is None else offset.index_select(1, idx),
+            isect_capacity=self.cfg.isect_capacity, densify=densify,
         )
-        radii = torch.zeros((viewmats.shape[0],) + alive.shape + (2,), dtype=torch.int32,
-                            device=alive.device)
-        radii[:, idx] = meta["radii"]
+        with trace_range("composite"):
+            radii = torch.zeros((viewmats.shape[0],) + alive.shape + (2,), dtype=torch.int32,
+                                device=alive.device)
+            radii[:, idx] = meta["radii"]
         meta["radii"] = radii
         meta["_2dgs"] = (normals, nfd, distort)
         return render[..., :3], alphas, meta
@@ -94,12 +97,13 @@ class Trainer2DGS(Trainer):
     def loss_fn(self, params, alive, viewmats, Ks, pixels, sh_degree, offset=None, step=0):
         cfg = self.cfg
         colors, _, meta = self.render(params, alive, viewmats, Ks, sh_degree, offset=offset)
-        colors = torch.clamp(colors, 0.0, 1.0)
-        loss = l1_loss(colors, pixels) * (1.0 - cfg.ssim_lambda)
-        loss = loss + ssim_loss(colors, pixels) * cfg.ssim_lambda
-        normals, nfd, distort = meta["_2dgs"]
-        if step >= cfg.normal_start_iter:
-            loss = loss + cfg.normal_lambda * normal_cosine_loss(normals, nfd.detach())
-        if step >= cfg.dist_start_iter:
-            loss = loss + cfg.dist_lambda * torch.mean(distort)
+        with trace_range("loss"):
+            colors = torch.clamp(colors, 0.0, 1.0)
+            loss = l1_loss(colors, pixels) * (1.0 - cfg.ssim_lambda)
+            loss = loss + ssim_loss(colors, pixels) * cfg.ssim_lambda
+            normals, nfd, distort = meta["_2dgs"]
+            if step >= cfg.normal_start_iter:
+                loss = loss + cfg.normal_lambda * normal_cosine_loss(normals, nfd.detach())
+            if step >= cfg.dist_start_iter:
+                loss = loss + cfg.dist_lambda * torch.mean(distort)
         return loss, meta

@@ -98,7 +98,8 @@ def trace(tr, vms, Ks, targets, name: str, n: int = 3) -> None:
             tr.run_step(step, np.array([step % len(vms)]), vms, Ks, targets)
         torch.cuda.synchronize()
         span_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy_us, reach = 0.0, -float("inf")
     for start, end in sorted((e.time_range.start, e.time_range.end) for e in kernels):
         busy_us += max(end - max(start, reach), 0.0)
