@@ -20,10 +20,10 @@ Phases:
      3840x2160 (tile 16) at render_scene's default, the fast path (the
      bf16-pair packed payload), after one sizing/warm-up pass; then one
      exact request (fast=False) per view.  Every kernel's launch count is set
-     to 0 just before each path's 4 requests and read just after: K3, K4
-     packed and K1 packed must be > 0 on the fast path, K3, K4 and K1 on the
-     exact one.  Each fast image is held to its exact one within the fast
-     path's class (mean < 5e-3, 99.9% < 0.05);
+     to 0 just before each path's 4 requests and read just after: the
+     one-pass projection, K3, K4 packed and K1 packed must be > 0 on the fast
+     path, K3, K4 and K1 on the exact one.  Each fast image is held to its
+     exact one within the fast path's class (mean < 5e-3, 99.9% < 0.05);
   3. reference: a small crop renders on the card and on the CPU (plain
      versions), exact and fast, and the images must agree (band tolerance);
      then the same crop at 960x540 with 64 colour channels, which the
@@ -32,7 +32,10 @@ Phases:
      gradients in the gradient reference's band (phase 7), K1 and K2
      launched once per group;
   4. kernels: the rasterizer's stages rerun on request 0's camera, exact
-     and packed, and must give that path's request-0 image bit for bit; K3,
+     and packed, and must give that path's request-0 image bit for bit; the
+     one-pass projection (csrc/projection_fwd.cu) against its plain version
+     on request 0's arguments (radii, means2d, depths, conics and opacities
+     bit for bit, colours within 1e-5), timed at the serving shape; K3,
      K4 and K4 packed against their plain versions on those inputs (exact),
      K1 at the serving shape (max |d| <= 1e-4) and K1 packed there bit for
      bit, both again at 960x540 with tiles 8, 16 and 32, and K2 (float32, and
@@ -252,7 +255,7 @@ Phases:
      (no eval3d launch); the loss must not rise.
      For each of phases 19 to 22 the counts are set to 0 just before and read
      just after: K3, K4, K1, K2 and K5 (float32) must be > 0.
-It prints one `kernels` JSON line (14 kernels, each with its launches on
+It prints one `kernels` JSON line (15 kernels, each with its launches on
 every path and `launches` on its own: MAIN_PATH; K1's records also carry
 `exp_bound_ms`, one exp per evaluated pair on the special-function units;
 K6a's, K6b's and K7a's bounds count the work given their early rejects, with
@@ -307,9 +310,7 @@ from gsplat_tpu_torch.ops import rasterize_sparse as sparse_mod
 from gsplat_tpu_torch.ops import segsum_kernel as sk
 from gsplat_tpu_torch.strategy import ops as strategy_ops
 from gsplat_tpu_torch.ops.isect import isect_offset_encode, isect_tiles
-from gsplat_tpu_torch.ops.projection import fully_fused_projection
-from gsplat_tpu_torch.ops.sh import spherical_harmonics
-from gsplat_tpu_torch.rendering import _campos_from_viewmats
+from gsplat_tpu_torch.ops import projection_kernel as pk
 from gsplat_tpu_torch import io_native
 from gsplat_tpu_torch.datasets import colmap as colmap_mod
 from gsplat_tpu_torch.datasets import (Parser, decode_png, decode_png_channels, encode_png,
@@ -345,6 +346,24 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 K1_FLOP_PER_PAIR = 21  # ~20 f32 operations and one exp per (pixel, slot)
 
+# the one-pass projection: a row's outputs (radii int32 x 2, means2d, depth,
+# conic, opacity, an RGB colour), and its arithmetic, ~200 operations to
+# sanitise, rotate, scale, move to the camera, project, blur, invert and cull
+# (csrc/projection.cuh) and ~150 more for a visible row's SH colour at
+# degree 3 (direction, 16 bases, 48 products and sums a channel)
+PROJECT_OUT_BYTES = 48
+PROJECT_FLOP_PER_ROW = 200
+SH3_FLOP_PER_ROW = 150
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (float32: any NaN equal to any NaN)."""
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
 def k2_flop_per_live_pair(D: int) -> int:
     """What K2's function needs for a live pair beyond K1's replay: 29 + 3D
     f32 operations for the gradient terms (w, d, E, 1/(1-alpha), v_alpha,
@@ -376,6 +395,8 @@ KERNELS = {
     "expand_emission_packed": ("csrc/expand.cu", "gsplat_tpu/ops/gather_pallas.py:691"),
     "rasterize_fwd_packed": ("csrc/rasterize_fwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:399"),
     "rasterize_bwd_packed": ("csrc/rasterize_bwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:613"),
+    # replaces no Pallas kernel: the JAX package leaves projection and SH to XLA
+    "project_shade": ("csrc/projection_fwd.cu", "none (gsplat_tpu/rendering.py, XLA)"),
 }
 # Each kernel's launch count: (wrapper, attribute); a packed mode counts on
 # the wrapper of its kernel, in `launches_packed`.
@@ -393,7 +414,8 @@ COUNTERS = {"expand_rows": (gk.expand_rows, "launches"),
             "rasterize_eval3d_bwd": (r3k.rasterize_eval3d_bwd, "launches"),
             "expand_emission_packed": (gk.expand_emission, "launches_packed"),
             "rasterize_fwd_packed": (rk.rasterize_fwd, "launches_packed"),
-            "rasterize_bwd_packed": (rk.rasterize_bwd, "launches_packed")}
+            "rasterize_bwd_packed": (rk.rasterize_bwd, "launches_packed"),
+            "project_shade": (pk.project_shade, "launches")}
 
 
 def reset_launches() -> None:
@@ -410,8 +432,10 @@ def read_launches() -> dict:
 # kernels at the serving shape.  The 3DGS trainer packs by default; the AV
 # trainer's camera renders do not.
 EXACT_RENDER_KERNELS = ("expand_rows", "expand_emission", "rasterize_fwd")
-SERVING_KERNELS = ("expand_rows", "expand_emission_packed", "rasterize_fwd_packed")
-TRAINING_KERNELS = SERVING_KERNELS + ("rasterize_bwd_packed", "segment_rowsum")
+SERVING_KERNELS = ("project_shade", "expand_rows", "expand_emission_packed",
+                   "rasterize_fwd_packed")
+TRAINING_KERNELS = ("expand_rows", "expand_emission_packed", "rasterize_fwd_packed",
+                    "rasterize_bwd_packed", "segment_rowsum")
 SURFEL_KERNELS = ("expand_emission_aabb", "gather_records", "rasterize2d_fwd", "rasterize2d_bwd",
                   "segment_rowsum")
 SURFEL_STEPS = 9
@@ -573,23 +597,26 @@ def scaled_K(K: np.ndarray, s: float) -> np.ndarray:
     return K
 
 
+def projection_inputs(scene: GaussianInferenceScene, vm: np.ndarray, K: np.ndarray, W: int,
+                      H: int):
+    """The arguments with which a request's rasterization() calls the
+    one-pass projection (ops/projection_kernel.py:project_shade): the
+    scene's stored fields, the camera, the render's planes and clip."""
+    dev = scene.get("means").device
+    fields = [scene.get(k) for k in ("means", "quats", "scales", "opacities", "colors")]
+    cam = (torch.as_tensor(vm, device=dev)[None], torch.as_tensor(K, device=dev)[None])
+    kw = {k: RENDER_KW[k] for k in ("near_plane", "far_plane", "radius_clip")}
+    return (*fields, *cam, W, H), dict(kw, sh_degree=scene.sh_degree)
+
+
 def rasterizer_inputs(scene: GaussianInferenceScene, vm: np.ndarray, K: np.ndarray, W: int, H: int):
     """The inputs that rasterization() hands rasterize_to_pixels for one
-    request: projection, SH colors (clamped at 0 after +0.5), opacities."""
-    dev = scene.get("means").device
-    f32 = lambda name: scene.get(name).to(torch.float32)
-    means, opac = f32("means"), f32("opacities")
-    vm_t = torch.as_tensor(vm, device=dev)[None]
-    radii, m2, depths, conics, _ = fully_fused_projection(
-        means, None, f32("quats"), f32("scales"), vm_t, torch.as_tensor(K, device=dev)[None],
-        W, H, near_plane=RENDER_KW["near_plane"], far_plane=RENDER_KW["far_plane"],
-        radius_clip=RENDER_KW["radius_clip"], opacities=opac,
-    )
-    dirs = means[None] - _campos_from_viewmats(vm_t)[:, None, :]
-    colors = spherical_harmonics(scene.sh_degree, dirs, f32("colors"),
-                                 masks=(radii > 0).all(dim=-1))
-    return dict(means2d=m2, conics=conics, colors=torch.clamp(colors + 0.5, min=0.0),
-                opacities=opac[None], radii=radii, depths=depths)
+    request: projection, SH colors (clamped at 0 after +0.5), opacities,
+    from the one-pass projection as the request computes them."""
+    args, kw = projection_inputs(scene, vm, K, W, H)
+    radii, m2, depths, conics, op, colors = pk.project_shade(*args, **kw)
+    return dict(means2d=m2, conics=conics, colors=colors, opacities=op, radii=radii,
+                depths=depths)
 
 
 def kernel_inputs(scene, vm, K, W: int, H: int, ts: int, cap: int, row_cap: int,
@@ -3989,6 +4016,21 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
 
     serve_in = request0_inputs(False, req0_exact)
     require(serve_in["n_isects"] == serve_exact[0]["n_isects"], "recomputed n_isects differ")
+    # the one-pass projection on request 0's own arguments: its plain version
+    # gives the same radii, means2d, depths, conics and opacities bit for
+    # bit, and colours within 1e-5 (SH sums, which no gate reads)
+    proj_args, proj_kw = projection_inputs(scene, viewmats[0], K, W, H)
+    got = pk.project_shade(*proj_args, **proj_kw)
+    want = pk.project_shade_plain(*proj_args, **proj_kw)
+    for name, x, y in zip(("radii", "means2d", "depths", "conics", "opacities"), got, want):
+        require(bits_equal(x, y), f"project_shade {name} differ from the plain version's")
+    err["project_shade"] = float((got[5] - want[5]).abs().max())
+    require(err["project_shade"] <= 1e-5,
+            f"project_shade colours differ by {err['project_shade']} > 1e-5")
+    n_visible = int((got[0] > 0).all(dim=-1).sum())
+    log(f"project_shade: {n_visible} of {scene.num_gaussians} visible, colours max |d| "
+        f"{err['project_shade']:.3g}")
+    del got, want
     got = gk.expand_rows(*serve_in["k3"])
     want = gk.expand_rows_plain(*serve_in["k3"])
     require(all(torch.equal(x, y) for x, y in zip(got, want)), "expand_rows != plain")
@@ -4067,6 +4109,17 @@ def run(dev: torch.device, n_cell: int, grid: int, serve_wh, check_wh, timer, lo
         log(f"rasterize_fwd{'' if R == F else ' packed'} at {W}x{H}: {pairs} (pixel, slot) "
             f"pairs evaluated, {n_slots} slots")
     del serve_in, serve_pk
+    n_rows = scene.num_gaussians
+    field_bytes = sum(scene.get(k)[0].numel() * scene.get(k).element_size()
+                      for k in ("means", "quats", "scales", "opacities"))
+    coeff_bytes = 3 * (scene.sh_degree + 1) ** 2 * scene.get("colors").element_size()
+    records.append(kernel_record(
+        "project_shade", launches["project_shade"], err["project_shade"],
+        timer(lambda: pk.project_shade(*proj_args, **proj_kw), 20),
+        timer(lambda: pk.project_shade_plain(*proj_args, **proj_kw), 1, warm=False),
+        n_rows * (field_bytes + PROJECT_OUT_BYTES) + n_visible * coeff_bytes,
+        n_rows * PROJECT_FLOP_PER_ROW + n_visible * SH3_FLOP_PER_ROW))
+    records[-1]["visible"] = n_visible
 
     # Profile: one recorded fast request of view 0 split by the program's
     # spans, then device time by kernel of the fast request.

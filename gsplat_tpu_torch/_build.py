@@ -65,6 +65,9 @@ SOURCE_FLAGS: Dict[str, List[str]] = {
     # compiled alike, for the same reason
     "rasterize_eval3d_fwd": [],
     "rasterize_eval3d_bwd": [],
+    # the no-grad projection rounds each operation explicitly
+    # (csrc/projection.cuh), as the plain PyTorch route does
+    "projection_fwd": [],
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -232,6 +235,11 @@ _SIGNATURES = {
         "gs_rasterize_eval3d_bwd": [_VOID, _LL, _VOID, _VOID, _INT, _INT, _INT, _INT, _INT,
                                     _INT, _INT, _INT, _VOID, _VOID, _VOID, _VOID, _VOID,
                                     _VOID, _VOID, _VOID],
+    },
+    "projection_fwd": {
+        "gs_project_shade": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _LL, _INT, _INT,
+                             _INT, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _INT,
+                             _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
     },
 }
 

@@ -41,11 +41,10 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..distributed import all_gather_tensor_list, all_to_all_tensor_list
 from ..ops.projection import fully_fused_projection
+from ..ops.projection_kernel import sh_colors
 from ..ops.rasterize import TILE, rasterize_to_pixels_packed
-from ..ops.sh import spherical_harmonics
 from ..rendering import (
     DEFAULT_CHUNK,
-    _campos_from_viewmats,
     _round_up,
     render_mode_has_color,
     render_mode_has_depth_channel,
@@ -210,9 +209,7 @@ def rasterization_sharded(
         op_b = op_b * comp
     if has_color:
         if sh_degree is not None:
-            dirs = means[None] - _campos_from_viewmats(vm_all)[:, None]  # [C, n_l, 3]
-            feats = spherical_harmonics(sh_degree, dirs, colors, masks=(radii > 0).all(dim=-1))
-            feats = torch.clamp(feats + 0.5, min=0.0)
+            feats = torch.clamp(sh_colors(sh_degree, colors, means, vm_all, radii) + 0.5, min=0.0)
         else:
             feats = colors[None].expand(C, n_l, colors.shape[-1])
         if has_depth:

@@ -1,8 +1,8 @@
 """Public rasterization API: the classic path, 3DGUT and eval3d (cameras
 with distortion and rolling shutter, the spinning lidar), and 2DGS surfels.
 
-Port of `gsplat_tpu/rendering.py` (render-mode predicates and
-_campos_from_viewmats :46-80, render_projected :83-127, rasterization
+Port of `gsplat_tpu/rendering.py` (render-mode predicates :46-80,
+render_projected :83-127, rasterization
 :130-680, rasterization_2dgs :683-813): projection (EWA, or the unscented
 transform with `with_ut`) -> SH or broadcast features -> plan, emission,
 sort and composite, either of the projected conics (classic) or along each
@@ -29,11 +29,12 @@ import torch
 
 from .ops.projection import fully_fused_projection
 from .ops.projection2d import fully_fused_projection_2dgs
+from .ops.projection_kernel import campos_from_viewmats as _campos_from_viewmats  # noqa: F401
+from .ops.projection_kernel import FIELD_DTYPES, project_shade, sanitize, sh_colors, widen
 from .ops.projection_ut import fully_fused_projection_ut
 from .ops.rasterize import TILE, _round_up, rasterize_to_pixels, rasterize_to_pixels_fast
 from .ops.rasterize2d import rasterize_to_pixels_2dgs
 from .ops.rasterize_eval3d import rasterize_to_pixels_eval3d
-from .ops.sh import spherical_harmonics
 from .sensors.cameras import generate_rays, make_camera
 from .sensors.lidars import angle_extent_to_element_grid, generate_lidar_rays
 from .sensors.params import (
@@ -42,7 +43,7 @@ from .sensors.params import (
     UnscentedTransformParameters,
 )
 from .utils.geometry import depth_to_normal
-from .utils.trace import backward_phase, trace_range
+from .utils.trace import backward_phase, count, trace_range
 
 _COLOR_MODES = {"RGB", "RGB-d", "RGB-Ed", "RGB+D", "RGB+ED"}
 _DEPTH_MODES = {"D", "ED", "RGB+D", "RGB+ED"}
@@ -61,14 +62,6 @@ def render_mode_has_depth_channel(mode: str) -> bool:
 
 def render_mode_has_expected_depth(mode: str) -> bool:
     return mode in _EXPECTED_MODES
-
-
-def _campos_from_viewmats(viewmats: torch.Tensor) -> torch.Tensor:
-    """Camera centres [..., C, 3] from world-to-camera matrices: -R^T t,
-    written elementwise (no TF32 product)."""
-    R = viewmats[..., :3, :3]
-    t = viewmats[..., :3, 3]
-    return -(R * t[..., :, None]).sum(dim=-2)
 
 
 def render_projected(
@@ -117,6 +110,33 @@ def _broadcast_feats(x, batch_dims, C, N, I):
     if x.dim() == len(batch_dims) + 2:
         x = x[..., None, :, :]
     return x.expand(batch_dims + (C, N, x.shape[-1])).reshape(I, N, -1)
+
+
+def _fused_route(means, quats, scales, opacities, colors, viewmats, Ks, sh_degree, covars,
+                 camera_model, with_ut, with_eval3d, extra_signals, means2d_offset,
+                 masks) -> bool:
+    """Whether the projection and SH colours take the one-pass route
+    (ops/projection_kernel.py:project_shade): nothing they feed needs a
+    gradient, and the call is the case that pass implements, unbatched
+    gaussians with quaternions and scales seen by pinhole cameras, float32
+    or bfloat16 fields and SH colours of 3 channels shared by the cameras.
+    Every other call takes the differentiable route."""
+    inputs = (means, quats, scales, opacities, colors, viewmats, Ks)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return False
+    if (covars is not None or quats is None or scales is None or camera_model != "pinhole"
+            or with_ut or with_eval3d or extra_signals is not None
+            or means2d_offset is not None or masks is not None):
+        return False
+    if means.dim() != 2 or opacities.dim() != 1 or viewmats.dim() != 3:
+        return False
+    fields = (means, quats, scales, opacities)
+    if colors is not None and sh_degree is not None:
+        if colors.dim() != 3 or colors.shape[-1] != 3:
+            return False
+        fields += (colors,)
+    return (all(t.dtype in FIELD_DTYPES for t in fields)
+            and viewmats.dtype == torch.float32 and Ks.dtype == torch.float32)
 
 
 def rasterization(
@@ -197,6 +217,13 @@ def rasterization(
     meta["render_normals"].  camera_model="lidar" renders the element grid
     of `lidar_coeffs` (with_ut and with_eval3d both required).
 
+    A call whose projection needs no gradient (grad mode off, or no input
+    requiring it) and that is the plain pinhole case takes the one-pass
+    projection and SH colours (ops/projection_kernel.py, `_fused_route`):
+    the same radii, means2d, depths, conics and opacities, bit for bit.
+    Every other call runs the differentiable PyTorch route, which widens
+    bfloat16 fields to float32 first.
+
     `packed`, `sparse_grad`, `channel_chunk`, `distributed` and `segmented`
     sit where the JAX package's `rasterization` has them and behave as
     there: every call compacts by visibility (`packed`), one process renders
@@ -260,74 +287,66 @@ def rasterization(
     I = B * C
 
     with trace_range("project"):
-        # Degenerate-input sanitization: rows with non-finite inputs or a zero
-        # quaternion become a safe zero-opacity gaussian before any math.
-        ok_in = torch.isfinite(means).all(dim=-1)
-        if quats is not None:
-            ok_in &= torch.isfinite(quats).all(dim=-1)
-            ok_in &= torch.sum(quats * quats, dim=-1) > 1e-24
-        if scales is not None:
-            ok_in &= torch.isfinite(scales).all(dim=-1)
-        if covars is not None:
-            flat = covars.reshape(covars.shape[: means.dim() - 1] + (-1,))
-            ok_in &= torch.isfinite(flat).all(dim=-1)
-        ok_in &= torch.isfinite(opacities)
-        okc = ok_in[..., None]
-        means = torch.where(okc, means, 0.0)
-        if quats is not None:
-            unit_q = torch.zeros_like(quats)
-            unit_q[..., 0] = 1.0
-            quats = torch.where(okc, quats, unit_q)
-        if scales is not None:
-            scales = torch.where(okc, scales, 1.0)
-        if covars is not None:
-            if covars.shape[-2:] == (3, 3):
-                eye = torch.eye(3, dtype=covars.dtype, device=covars.device).expand(covars.shape)
-                covars = torch.where(okc[..., None], covars, eye)
-            else:
-                eye = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0, 1.0], dtype=covars.dtype,
-                                   device=covars.device)
-                covars = torch.where(okc, covars, eye)
-        opacities = torch.where(ok_in, opacities, 0.0)  # 0 < 1/255 -> culled
-
         calc_compensations = rasterize_mode == "antialiased"
-        if with_ut:
-            # sigma points through the nonlinear camera model
-            radii, means2d, depths, conics, compensations = fully_fused_projection_ut(
-                means, quats, scales, opacities, viewmats, Ks, width, height, eps2d=eps2d,
-                near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
-                calc_compensations=calc_compensations, camera_model=camera_model,
-                ut_params=ut_params, radial_coeffs=radial_coeffs,
-                tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
-                ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
-                viewmats_rs=viewmats_rs, lidar_coeffs=lidar_coeffs, global_z_order=global_z_order,
-                external_distortion=external_distortion,
+        fused = _fused_route(
+            means, quats, scales, opacities, colors if has_color else None, viewmats, Ks,
+            sh_degree, covars, camera_model, with_ut, with_eval3d, extra_signals,
+            means2d_offset, masks,
+        )
+        sh_done = None
+        if fused:
+            # one pass, no autograd: ops/projection_kernel.py
+            radii, means2d, depths, conics, op, sh_done = project_shade(
+                means, quats, scales, opacities,
+                colors if has_color and sh_degree is not None else None, viewmats, Ks, width,
+                height, sh_degree=sh_degree, eps2d=eps2d, near_plane=near_plane,
+                far_plane=far_plane, radius_clip=radius_clip, antialiased=calc_compensations,
             )
+            count("project.fused", I * N)
+            if sh_degree is None:
+                colors = widen(colors)  # colours without SH are broadcast as float32
         else:
-            radii, means2d, depths, conics, compensations = fully_fused_projection(
-                means, covars, quats, scales, viewmats, Ks, width, height, eps2d=eps2d,
-                near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
-                calc_compensations=calc_compensations, camera_model=camera_model,
-                opacities=opacities,
-            )
+            means, quats, scales, opacities, colors = map(
+                widen, (means, quats, scales, opacities, colors))
+            means, quats, scales, opacities, covars = sanitize(
+                means, quats, scales, opacities, covars)
+            if with_ut:
+                # sigma points through the nonlinear camera model
+                radii, means2d, depths, conics, compensations = fully_fused_projection_ut(
+                    means, quats, scales, opacities, viewmats, Ks, width, height, eps2d=eps2d,
+                    near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+                    calc_compensations=calc_compensations, camera_model=camera_model,
+                    ut_params=ut_params, radial_coeffs=radial_coeffs,
+                    tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
+                    ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
+                    viewmats_rs=viewmats_rs, lidar_coeffs=lidar_coeffs,
+                    global_z_order=global_z_order, external_distortion=external_distortion,
+                )
+            else:
+                radii, means2d, depths, conics, compensations = fully_fused_projection(
+                    means, covars, quats, scales, viewmats, Ks, width, height, eps2d=eps2d,
+                    near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+                    calc_compensations=calc_compensations, camera_model=camera_model,
+                    opacities=opacities,
+                )
+            op = opacities[..., None, :].expand(batch_dims + (C, N)).reshape(I, N)
+            if calc_compensations:
+                op = op * compensations.reshape(I, N)
 
         radii_f = radii.reshape(I, N, 2)
         means2d_f = means2d.reshape(I, N, 2)
         depths_f = depths.reshape(I, N)
         conics_f = conics.reshape(I, N, 3)
-        op = opacities[..., None, :].expand(batch_dims + (C, N)).reshape(I, N)
-        if calc_compensations:
-            op = op * compensations.reshape(I, N)
 
         def sh_feats(degree, coeffs):
             with trace_range("project.sh"):
-                campos = _campos_from_viewmats(viewmats)  # [..., C, 3]
-                dirs = means[..., None, :, :] - campos[..., None, :]  # [..., C, N, 3]
-                return spherical_harmonics(degree, dirs, coeffs, masks=(radii > 0).all(dim=-1))
+                return sh_colors(degree, coeffs, means, viewmats, radii)
 
         n_extra = 0
         if has_color:
-            if sh_degree is not None:
+            if sh_done is not None:
+                feats_f = sh_done
+            elif sh_degree is not None:
                 feats = torch.clamp(sh_feats(sh_degree, colors) + 0.5, min=0.0)
                 feats_f = feats.reshape(I, N, -1)
             else:
@@ -548,10 +567,8 @@ def rasterization_2dgs(
         if has_color:
             if sh_degree is not None:
                 with trace_range("project.sh"):
-                    dirs = means[None, :, :] - _campos_from_viewmats(viewmats)[:, None, :]
-                    feats = spherical_harmonics(sh_degree, dirs, colors,
-                                                masks=(radii > 0).all(dim=-1))
-                    feats = torch.clamp(feats + 0.5, min=0.0)
+                    feats = torch.clamp(sh_colors(sh_degree, colors, means, viewmats, radii) + 0.5,
+                                        min=0.0)
             else:
                 feats = (colors[None] if colors.dim() == 2 else colors).expand(
                     C, N, colors.shape[-1])

@@ -151,7 +151,8 @@ def render_scene(
     """Inference-only render of a scene: (colors [C, H, W, D], alphas
     [C, H, W, 1], meta with meta['render_path'] = 'inference').
 
-    Parameters are unpacked from bf16 to f32 at the boundary.  `fast=True`
+    The stored bf16 fields are read as they are (rasterization widens them
+    where its route computes in f32).  `fast=True`
     (the default) renders RGB through the bf16-pair packed path, about 2^-9
     per field; the depth modes always take the exact path, as in the JAX
     package.  A released scene raises.
@@ -173,16 +174,13 @@ def render_scene(
         if K.dim() == 2:
             K = K[None]
 
-    # each unpacked tensor goes straight into the call, which then holds the
-    # only reference and frees it once sanitised
-    @trace_function("project")
-    def f32(name):
-        return scene.get(name).to(torch.float32)
-
+    # the stored tensors go in as they are: the one-pass projection reads
+    # bf16 fields itself, and the differentiable route widens them to f32
+    g = scene.get
     render, alphas, meta = rasterization(
-        f32("means"), f32("quats"), f32("scales"), f32("opacities"), f32("colors"),
-        viewmat, K, width, height, sh_degree=scene.sh_degree, render_mode=render_mode,
-        backgrounds=backgrounds, fast=fast, **kwargs,
+        g("means"), g("quats"), g("scales"), g("opacities"), g("colors"), viewmat, K, width,
+        height, sh_degree=scene.sh_degree, render_mode=render_mode, backgrounds=backgrounds,
+        fast=fast, **kwargs,
     )
     meta["render_path"] = "inference"
     return render, alphas, meta

@@ -48,6 +48,7 @@ KERNELS = {
     "K6b": (re.compile(r"rasterize2d_bwd"), {"composite.bwd"}),
     "K5": (re.compile(r"segment_rowsum"), {"reduce.bwd"}),
     "radix sort": (re.compile(r"RadixSort"), {"sort"}),
+    "project_shade": (re.compile(r"project_shade_kernel"), {"project"}),
 }
 
 

@@ -1363,3 +1363,74 @@ def test_k1_stress_cases_on_the_card(case, packed, ts):
     assert torch.equal(live, kept) and int(kept.sum()) > 0
     if case == "all_stop":
         assert float(t.max()) < 0.02  # every pixel stopped
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+@pytest.mark.parametrize("antialiased", [False, True], ids=["classic", "antialiased"])
+@pytest.mark.parametrize("C", [1, 2])
+def test_projection_kernel_matches_its_plain_version_on_the_card(dtype, deg, antialiased, C):
+    """The one-pass projection (csrc/projection_fwd.cu) against its plain
+    version on the card, on tests/test_torch_projection_kernel.py's seeded
+    scene with its degenerate rows: radii, means2d, depths, conics and
+    opacities bit for bit (the kernel follows PyTorch's order on the card,
+    the quaternion's squared norm as torch.sum adds a row of 4, (w^2 + y^2)
+    + (x^2 + z^2)); the colours within 1e-5, since the SH sums carry no gate
+    (the kernel follows PyTorch's order there too: torch.linalg.vector_norm's
+    (x^2 + z^2) + y^2, the basis sum's four partial sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import projection_kernel as pk
+    from test_torch_projection_kernel import project_args, projection_scene, same_bits
+
+    s = projection_scene(N=20000, C=C, dtype=dtype, device="cuda")
+    args, kw = project_args(s, deg, antialiased)
+    launches = pk.project_shade.launches
+    got = pk.project_shade(*args, **kw)
+    want = pk.project_shade_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert pk.project_shade.launches == launches + 1
+    for name, x, y in zip(("radii", "means2d", "depths", "conics", "op"), got, want):
+        bad = ~(x.view(torch.int32) == y.view(torch.int32)) & ~(x.isnan() & y.isnan()) \
+            if x.dtype == torch.float32 else x != y
+        assert same_bits(x, y), (name, int(bad.sum()), bad.nonzero()[:4].tolist(),
+                                 x[bad][:4].tolist(), y[bad][:4].tolist())
+    assert (got[5] - want[5]).abs().max().item() <= 1e-5
+    assert bool((got[0] > 0).all(-1).any())
+
+
+@pytest.mark.gpu
+def test_projection_kernel_radii_at_the_serving_shape():
+    """The serving cell's scene (2,794,625 gaussians, SH 3, bf16 fields) at
+    3840x2160 from three of its poses: the kernel's radii, means2d, depths,
+    conics and opacities equal the plain version's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+
+    from benchmark.harness import scene as bench_scene
+    from benchmark.harness import traffic
+    from gsplat_tpu_torch.ops import projection_kernel as pk
+    from gsplat_tpu_torch.scene import GaussianInferenceScene, GaussianScene
+    from test_torch_projection_kernel import same_bits
+
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "grid5-3dgs.json").read_text())
+    mix = json.loads((ROOT / "benchmark" / "traffic" / "serve-4k.json").read_text())
+    params = bench_scene.make_scene(cfg, 2147483647 + 12345, "cuda")
+    cams = traffic.cameras(mix, params["means"])
+    sc = GaussianInferenceScene.from_gaussian_scene(GaussianScene("grid", params), id="grid")
+    del params
+    fields = [sc.get(k) for k in ("means", "quats", "scales", "opacities", "colors")]
+    for pose in (0, 13, 26):
+        args = (*fields, cams.viewmats[pose:pose + 1], cams.K[None], mix["width"], mix["height"])
+        kw = dict(sh_degree=3, near_plane=cfg["near_plane"], far_plane=cfg["far_plane"],
+                  radius_clip=cfg["radius_clip"])
+        got = pk.project_shade(*args, **kw)
+        want = pk.project_shade_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("radii", "means2d", "depths", "conics", "op"), got, want):
+            assert same_bits(x, y), (pose, name)
+        assert bool((got[0] > 0).all(-1).any())
+        assert (got[5] - want[5]).abs().max().item() <= 1e-5
+        del got, want

@@ -22,7 +22,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 TRAIN_SPANS = ["train.step", "project", "project.sh", "plan", "sort", "composite", "loss",
                "backward", "loss.bwd", "composite.bwd", "reduce.bwd", "project.bwd",
                "optimizer", "strategy"]
-SERVE_SPANS = ["serve.request", "project", "project.sh", "plan", "sort", "composite"]
+# a request needs no gradient: its projection and SH colours are one
+# `project` pass (ops/projection_kernel.py), with no `project.sh` span
+SERVE_SPANS = ["serve.request", "project", "plan", "sort", "composite"]
 
 
 def test_trace_ranges_show_in_a_profiler_trace():
@@ -242,4 +244,5 @@ def test_a_recorded_fast_path_render_is_bitwise_the_unrecorded_one():
     _bitwise(a[:2], b[:2])
     _bitwise(a[2]["n_isects"], b[2]["n_isects"])
     assert _tree(rec)[1] == SERVE_SPANS
-    assert [c.name for c in rec.counters] == ["plan.isects", "plan.capacity"]
+    assert [c.name for c in rec.counters] == ["project.fused", "plan.isects", "plan.capacity"]
+    assert rec.counters[0].value == 300
