@@ -47,6 +47,7 @@ from .rasterize_eval3d_kernel import (
     rasterize_eval3d_bwd,
     rasterize_eval3d_fwd,
 )
+from ..utils.trace import trace_range
 
 
 def iscl_rot_from_quat_scale(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -66,28 +67,30 @@ class _RasterizeEval3DCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xyzf, Mf, sclf, clf, nrf, opf, rays, depthf, plan: EmissionPlan, cap_total,
                 tile_width, tile_height, n_images, use_hit_distance, return_normals):
-        ok = (plan.cnt > 0)[:, None]
-        rows = [xyzf, Mf, opf[:, None]]
-        if use_hit_distance:
-            rows.append(sclf)
-        rows.append(clf)
-        if return_normals:
-            rows.append(nrf)
-        fill = torch.zeros((1, sum(r.shape[1] for r in rows)), dtype=xyzf.dtype,
-                           device=xyzf.device)
-        if use_hit_distance:
-            fill[:, 13:16] = 1.0  # culled rows take unit scales
-        table = gaussian_records(rows, ok, fill)
-        depthf = torch.where(ok[:, 0], depthf, 0.0)
+        with trace_range("plan"):
+            ok = (plan.cnt > 0)[:, None]
+            rows = [xyzf, Mf, opf[:, None]]
+            if use_hit_distance:
+                rows.append(sclf)
+            rows.append(clf)
+            if return_normals:
+                rows.append(nrf)
+            fill = torch.zeros((1, sum(r.shape[1] for r in rows)), dtype=xyzf.dtype,
+                               device=xyzf.device)
+            if use_hit_distance:
+                fill[:, 13:16] = 1.0  # culled rows take unit scales
+            table = gaussian_records(rows, ok, fill)
+            depthf = torch.where(ok[:, 0], depthf, 0.0)
         fields_s, bounds, order, _ = expand_sort_align(
             table, depthf, plan, cap_total, tile_width, tile_height, n_images
         )
         del table
         height, width = rays.shape[1], rays.shape[2]
-        pix_out, t_final = rasterize_eval3d_fwd(
-            fields_s, bounds, rays, n_images, tile_width, tile_height, width, height,
-            use_hit_distance, return_normals,
-        )
+        with trace_range("composite"):
+            pix_out, t_final = rasterize_eval3d_fwd(
+                fields_s, bounds, rays, n_images, tile_width, tile_height, width, height,
+                use_hit_distance, return_normals,
+            )
         if any(ctx.needs_input_grad[:7]):  # else no backward will run: keep nothing
             ctx.save_for_backward(fields_s, bounds, order, plan.cum_in, plan.n_slots, rays,
                                   pix_out, t_final)
@@ -101,15 +104,17 @@ class _RasterizeEval3DCore(torch.autograd.Function):
         fields_s, bounds, order, cum_in, n_slots, rays, pix_out, t_final = ctx.saved_tensors
         n_images, tw, th, width, height, hit, normals = ctx.geometry
         D = ctx.n_channels
-        v_slot, v_rays = rasterize_eval3d_bwd(
-            fields_s, bounds, rays, n_images, tw, th, width, height, hit, normals,
-            v_pix.contiguous(), v_t.contiguous(), pix_out, t_final,
-        )
-        vg = reduce_slot_grads(v_slot, order, cum_in, n_slots)  # [F, E]
-        del v_slot
-        _, color0, normal0, scale0 = field_layout(D, hit, normals)
-        v_scl = vg[scale0 : scale0 + 3].t() if hit else None
-        v_nr = vg[normal0 : normal0 + 3].t() if normals else None
+        with trace_range("composite.bwd"):
+            v_slot, v_rays = rasterize_eval3d_bwd(
+                fields_s, bounds, rays, n_images, tw, th, width, height, hit, normals,
+                v_pix.contiguous(), v_t.contiguous(), pix_out, t_final,
+            )
+        with trace_range("reduce.bwd"):
+            vg = reduce_slot_grads(v_slot, order, cum_in, n_slots)  # [F, E]
+            del v_slot
+            _, color0, normal0, scale0 = field_layout(D, hit, normals)
+            v_scl = vg[scale0 : scale0 + 3].t() if hit else None
+            v_nr = vg[normal0 : normal0 + 3].t() if normals else None
         return (vg[0:3].t(), vg[3:12].t(), v_scl, vg[color0 : color0 + D].t(), v_nr, vg[12],
                 v_rays, *([None] * 8))
 
@@ -151,26 +156,29 @@ def rasterize_to_pixels_eval3d(
     cap_total = _round_up(isect_capacity + E, CH)
 
     plan = make_emission_plan(means2d, radii, tile_size, tw, th, cap_total)
-    M = iscl_rot_from_quat_scale(quats, scales).reshape(N, 9)
-    if return_normals:
-        normals = quat_to_rotmat(quats)[..., :, 2]  # [N, 3]
-    else:
-        normals = torch.zeros((N, 3), dtype=means.dtype, device=means.device)
 
     def per_image(x):
         return x[None].expand((I,) + tuple(x.shape)).reshape(E, x.shape[-1])
 
+    with trace_range("plan"):  # the records' per-gaussian rows
+        M = iscl_rot_from_quat_scale(quats, scales).reshape(N, 9)
+        if return_normals:
+            normals = quat_to_rotmat(quats)[..., :, 2]  # [N, 3]
+        else:
+            normals = torch.zeros((N, 3), dtype=means.dtype, device=means.device)
+        rows = (per_image(means), per_image(M), per_image(scales), colors.reshape(E, D),
+                per_image(normals), opacities.reshape(E), rays.contiguous(),
+                depths.detach().reshape(E))
     pix_out, t_final = _RasterizeEval3DCore.apply(
-        per_image(means), per_image(M), per_image(scales), colors.reshape(E, D),
-        per_image(normals), opacities.reshape(E), rays.contiguous(), depths.detach().reshape(E),
-        plan, cap_total, tw, th, I, use_hit_distance, return_normals,
+        *rows, plan, cap_total, tw, th, I, use_hit_distance, return_normals,
     )
-    render = pix_out[..., :D]
-    render_n = pix_out[..., D : D + 3] if return_normals else None
-    t_img = t_final[..., None]
-    alphas = 1.0 - t_img
-    if backgrounds is not None:
-        render = render + t_img * backgrounds[:, None, None, :]
+    with trace_range("composite"):
+        render = pix_out[..., :D]
+        render_n = pix_out[..., D : D + 3] if return_normals else None
+        t_img = t_final[..., None]
+        alphas = 1.0 - t_img
+        if backgrounds is not None:
+            render = render + t_img * backgrounds[:, None, None, :]
     aux = {
         "n_isects": plan.n_isects,
         "isect_overflow": plan.overflow,

@@ -312,16 +312,19 @@ def rasterization(
                 means, quats, scales, opacities, covars)
             if with_ut:
                 # sigma points through the nonlinear camera model
-                radii, means2d, depths, conics, compensations = fully_fused_projection_ut(
-                    means, quats, scales, opacities, viewmats, Ks, width, height, eps2d=eps2d,
-                    near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
-                    calc_compensations=calc_compensations, camera_model=camera_model,
-                    ut_params=ut_params, radial_coeffs=radial_coeffs,
-                    tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
-                    ftheta_coeffs=ftheta_coeffs, rolling_shutter=rolling_shutter,
-                    viewmats_rs=viewmats_rs, lidar_coeffs=lidar_coeffs,
-                    global_z_order=global_z_order, external_distortion=external_distortion,
-                )
+                with trace_range("project.ut"):
+                    radii, means2d, depths, conics, compensations = fully_fused_projection_ut(
+                        means, quats, scales, opacities, viewmats, Ks, width, height,
+                        eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
+                        radius_clip=radius_clip, calc_compensations=calc_compensations,
+                        camera_model=camera_model, ut_params=ut_params,
+                        radial_coeffs=radial_coeffs, tangential_coeffs=tangential_coeffs,
+                        thin_prism_coeffs=thin_prism_coeffs, ftheta_coeffs=ftheta_coeffs,
+                        rolling_shutter=rolling_shutter, viewmats_rs=viewmats_rs,
+                        lidar_coeffs=lidar_coeffs, global_z_order=global_z_order,
+                        external_distortion=external_distortion,
+                    )
+                count("project.ut", I * N)
             else:
                 radii, means2d, depths, conics, compensations = fully_fused_projection(
                     means, covars, quats, scales, viewmats, Ks, width, height, eps2d=eps2d,
@@ -381,6 +384,27 @@ def rasterization(
             else:
                 m2_render = means2d_f + off  # its gradient is the screen-space gradient
 
+        if with_eval3d:
+            # the rays of the camera model or the lidar; the projection's radii
+            # tile (for a lidar, converted to its element grid)
+            with trace_range("project.rays"):
+                if camera_model == "lidar":
+                    if rays is None:
+                        rays = generate_lidar_rays(lidar_coeffs, viewmats, viewmats_rs)
+                    m2g, rdg = angle_extent_to_element_grid(lidar_coeffs, means2d, radii)
+                    means2d_f, radii_f = m2g.reshape(I, N, 2), rdg.reshape(I, N, 2)
+                elif rays is None:
+                    camera = make_camera(
+                        camera_model, width, height,
+                        focal_lengths=(None if camera_model == "ftheta"
+                                       else torch.stack([Ks[..., 0, 0], Ks[..., 1, 1]], dim=-1)),
+                        principal_points=Ks[..., :2, 2], radial_coeffs=radial_coeffs,
+                        tangential_coeffs=tangential_coeffs,
+                        thin_prism_coeffs=thin_prism_coeffs, ftheta_coeffs=ftheta_coeffs,
+                        shutter_type=rolling_shutter, external_distortion=external_distortion,
+                    )
+                    rays = generate_rays(camera, width, height, viewmats, viewmats_rs)
+
     th = -(-height // tile_size)
     tw = -(-width // tile_size)
     if isect_capacity is None:
@@ -390,33 +414,19 @@ def rasterization(
     masks_f = masks.reshape(I, th, tw) if masks is not None else None
 
     if with_eval3d:
-        # the rays of the camera model or the lidar; the projection's radii
-        # tile (for a lidar, converted to its element grid)
-        if camera_model == "lidar":
-            if rays is None:
-                rays = generate_lidar_rays(lidar_coeffs, viewmats, viewmats_rs)
-            m2g, rdg = angle_extent_to_element_grid(lidar_coeffs, means2d, radii)
-            means2d_f, radii_f = m2g.reshape(I, N, 2), rdg.reshape(I, N, 2)
-        elif rays is None:
-            camera = make_camera(
-                camera_model, width, height,
-                focal_lengths=(None if camera_model == "ftheta"
-                               else torch.stack([Ks[..., 0, 0], Ks[..., 1, 1]], dim=-1)),
-                principal_points=Ks[..., :2, 2], radial_coeffs=radial_coeffs,
-                tangential_coeffs=tangential_coeffs, thin_prism_coeffs=thin_prism_coeffs,
-                ftheta_coeffs=ftheta_coeffs, shutter_type=rolling_shutter,
-                external_distortion=external_distortion,
-            )
-            rays = generate_rays(camera, width, height, viewmats, viewmats_rs)
+        backward_phase("project.bwd", means, quats, scales, feats_f, op)
         render_colors, render_alphas, render_normals, aux = rasterize_to_pixels_eval3d(
             means, quats, scales, feats_f, op, rays, width, height, radii_f, depths_f, means2d_f,
             isect_capacity, backgrounds=bg_f, tile_size=tile_size,
             use_hit_distance=render_mode in _HIT_DIST_MODES, return_normals=return_normals,
         )
-        if render_mode_has_expected_depth(render_mode):
-            depth_ch = render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)
-            render_colors = torch.cat([render_colors[..., :-1], depth_ch], dim=-1)
-        render_colors, render_extra = _split_extra(render_colors, n_extra, has_depth)
+        with trace_range("composite"):
+            if render_mode_has_expected_depth(render_mode):
+                depth_ch = render_colors[..., -1:] / torch.clamp(render_alphas, min=1e-10)
+                render_colors = torch.cat([render_colors[..., :-1], depth_ch], dim=-1)
+            render_colors, render_extra = _split_extra(render_colors, n_extra, has_depth)
+        backward_phase("composite.bwd", render_colors, render_alphas, render_normals,
+                       render_extra)
         meta = {
             "radii": radii,
             "means2d": means2d,

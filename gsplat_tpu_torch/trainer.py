@@ -15,6 +15,17 @@ exactly either way.  The model has a static capacity
 `cap_max` for MCMC) as in the JAX trainer, so the two compare step by step:
 the same seed gives the same initial parameters and the same batch order.
 
+3DGUT (upstream's `--with_ut --with_eval3d`): `Config.with_ut` projects
+through the unscented transform, `with_eval3d` composites along each
+pixel's world-space ray, and `radial_coeffs` (OpenCV k1..k6) distort
+every view's pinhole.  `Trainer.render` and the npz branch's target render
+take them, so the training step, its targets, capacity sizing and `eval`
+all see through the one lens.  The ray composite has no packed carriers
+and no screen-space gradient, so `with_eval3d` needs `pack_payload=False,
+pack_grads=False` and `strategy="mcmc"`; `with_ut` needs `with_eval3d`, as
+upstream's trainer asks, and distortion needs `with_ut`: `__init__` raises
+a ValueError naming the field otherwise.
+
 The data is a COLMAP scene (`Config.data="colmap"`, the default, as in
 the JAX trainer): `Config.data_dir` holds `sparse/0` (binary or text model)
 and `images_{factor}` (or `images`); the views of the `test_every=8`
@@ -142,6 +153,12 @@ class Config:
     # JAX trainer's defaults; False for the exact float32 path
     pack_payload: bool = True
     pack_grads: bool = True
+    # 3DGUT: project through the unscented transform (with_ut) and composite
+    # along each pixel's world-space ray (with_eval3d); the OpenCV radial
+    # coefficients k1..k6 (empty: none) of every view's pinhole
+    with_ut: bool = False
+    with_eval3d: bool = False
+    radial_coeffs: Tuple[float, ...] = ()
     eval_every: int = 7000
     save_every: int = 7000
     opacity_reg: float = 0.0
@@ -191,6 +208,27 @@ class Config:
     # the live training viewer (viewer/): off by default, as in the JAX trainer
     disable_viewer: bool = True
     viewer_port: int = 8080
+
+
+def _check_3dgut(cfg: Config) -> None:
+    """Refuse what the 3DGUT fields cannot carry: the ray composite has no
+    packed payload or gradients and no screen-space gradient (which the
+    default strategy densifies on); the UT trains only into the ray
+    composite, as upstream's trainer asks; distortion needs the UT."""
+    if cfg.with_eval3d:
+        for name in ("pack_payload", "pack_grads"):
+            if getattr(cfg, name):
+                raise ValueError(f"with_eval3d takes no {name}: the ray composite has no "
+                                 f"packed mode; set {name}=False")
+        if cfg.strategy != "mcmc":
+            raise ValueError(f"with_eval3d trains with strategy='mcmc', not {cfg.strategy!r}: "
+                             "the ray composite gives no screen-space gradient to densify on")
+    if cfg.with_ut and not cfg.with_eval3d:
+        raise ValueError("with_ut trains into the ray composite: set with_eval3d=True")
+    if cfg.radial_coeffs and not cfg.with_ut:
+        raise ValueError("radial_coeffs (a distorting camera) needs with_ut=True")
+    if len(cfg.radial_coeffs) > 6:
+        raise ValueError(f"radial_coeffs takes k1..k6, got {len(cfg.radial_coeffs)} values")
 
 
 APP_FEATURE_DIM = 32  # the appearance head's per-gaussian features
@@ -265,8 +303,11 @@ class Trainer:
             raise ValueError(f"unknown compression: {cfg.compression}")
         if cfg.render_traj and cfg.render_traj_path not in TRAJ_PATHS:
             raise ValueError(f"unknown render_traj_path: {cfg.render_traj_path}")
+        _check_3dgut(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._radial = (torch.tensor([cfg.radial_coeffs], dtype=torch.float32, device=self.device)
+                        if cfg.radial_coeffs else None)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         os.makedirs(cfg.result_dir, exist_ok=True)
@@ -453,7 +494,15 @@ class Trainer:
             row_capacity=self.cfg.row_capacity or None,
             means2d_offset=offset, absgrad=absgrad,
             pack_payload=self.cfg.pack_payload, pack_grads=self.cfg.pack_grads,
+            **self._lens(viewmats.shape[0]),
         )
+
+    def _lens(self, C: int) -> dict:
+        """`rasterization`'s 3DGUT arguments for C views: the UT, the ray
+        composite and one row of k1.. per view."""
+        radial = None if self._radial is None else self._radial.expand(C, -1)
+        return dict(with_ut=self.cfg.with_ut, with_eval3d=self.cfg.with_eval3d,
+                    radial_coeffs=radial)
 
     @property
     def absgrad(self) -> bool:
@@ -504,9 +553,9 @@ class Trainer:
     def train_step(self, params, alive, viewmats, Ks, pixels, sh_degree: int, step: int = 0,
                    cam_ids=None, addons=None):
         """One forward and backward.  Returns (loss, gradients keyed like
-        params, screen-space gradient [C, cap, 2], radii, visibility [cap],
-        isect_overflow); `train_step_addons` returns the add-ons' gradients
-        too."""
+        params, screen-space gradient [C, cap, 2] (None with `with_eval3d`),
+        radii, visibility [cap], isect_overflow); `train_step_addons` returns
+        the add-ons' gradients too."""
         return self.train_step_addons(params, alive, viewmats, Ks, pixels, sh_degree, step=step,
                                       cam_ids=cam_ids, addons=addons)[:6]
 
@@ -522,8 +571,10 @@ class Trainer:
         leaves = {k: leaf(v) for k, v in params.items()}
         a_leaves = {name: ({k: leaf(v) for k, v in p.items()} if isinstance(p, dict) else leaf(p))
                     for name, p in addons.items()}
-        offset = torch.zeros((viewmats.shape[0], self.capacity, 2), dtype=torch.float32,
-                             device=self.device, requires_grad=True)
+        offset = None  # the ray composite has no screen-space carrier
+        if not self.cfg.with_eval3d:
+            offset = torch.zeros((viewmats.shape[0], self.capacity, 2), dtype=torch.float32,
+                                 device=self.device, requires_grad=True)
         kw = dict(cam_ids=cam_ids.long(), addons=a_leaves) if a_leaves else {}
         loss, meta = self.loss_fn(leaves, alive, viewmats, Ks, pixels, sh_degree, offset=offset,
                                   step=step, **kw)
@@ -537,8 +588,8 @@ class Trainer:
                    for name, p in a_leaves.items()}
         radii = meta["radii"]
         visibility = (radii > 0).all(dim=-1).any(dim=0) & alive
-        return (loss.detach(), grads, offset.grad, radii, visibility, meta["isect_overflow"],
-                a_grads)
+        g_screen = None if offset is None else offset.grad
+        return (loss.detach(), grads, g_screen, radii, visibility, meta["isect_overflow"], a_grads)
 
     @trace_function("optimizer")
     def update(self, params, opt_state: AdamState, grads, visibility, lr_scale_means: float):
@@ -819,7 +870,7 @@ class Trainer:
     @torch.no_grad()
     def _make_npz_targets(self) -> torch.Tensor:
         """Targets: a clean render of the full point cloud (`target_splats`)
-        at every camera."""
+        at every camera, through the lens the model trains with."""
         dev = self.device
         args = self.target_splats()
         outs = []
@@ -830,6 +881,7 @@ class Trainer:
                 torch.from_numpy(self.Ks[i : i + chunk]).to(dev), self.width, self.height,
                 isect_capacity=self.cfg.isect_capacity,
                 row_capacity=self.cfg.row_capacity or None,
+                **self._lens(min(chunk, len(self.viewmats) - i)),
             )
             if bool(meta["isect_overflow"]):
                 raise RuntimeError(

@@ -66,6 +66,9 @@ class Trainer2DGS(Trainer):
         if on:
             raise ValueError(f"the 2DGS trainer takes none of the add-ons {on}, as the JAX "
                              "2DGS runner's step")
+        if cfg.with_ut or cfg.with_eval3d or cfg.radial_coeffs:
+            raise ValueError("the 2DGS trainer projects surfels: with_ut, with_eval3d and "
+                             "radial_coeffs apply to the 3DGS trainer")
         super().__init__(cfg, data=data, device=device)
 
     def render(self, params, alive, viewmats, Ks, sh_degree, offset=None, app=None,

@@ -246,3 +246,43 @@ def test_a_recorded_fast_path_render_is_bitwise_the_unrecorded_one():
     assert _tree(rec)[1] == SERVE_SPANS
     assert [c.name for c in rec.counters] == ["project.fused", "plan.isects", "plan.capacity"]
     assert rec.counters[0].value == 300
+
+
+def _gut_render(leaves):
+    from gsplat_tpu_torch.rendering import rasterization
+
+    vm = torch.eye(4)
+    vm[2, 3] = 4.0
+    K = torch.tensor([[60.0, 0, 32], [0, 60.0, 24], [0, 0, 1]])
+    img, alpha, meta = rasterization(
+        *leaves, vm[None], K[None], 64, 48, sh_degree=1, isect_capacity=1 << 14,
+        with_ut=True, with_eval3d=True, radial_coeffs=torch.tensor([[0.08, -0.02, 0.004]]))
+    (img.square().sum() + alpha.sum()).backward()
+    return img.detach(), alpha.detach(), [t.grad for t in leaves]
+
+
+def test_a_recorded_3dgut_render_and_backward_open_the_eval3d_spans():
+    """A 3DGUT render (UT projection, rays of a distorting pinhole, K7a's
+    plain version) and its backward, recorded and not: equal bit for bit;
+    the UT under `project.ut` with its counter of I x N rows, the rays
+    under `project.rays`, the composite and its backward in `composite`,
+    `composite.bwd` and `reduce.bwd`, and the AABB plan's counters."""
+    rng = np.random.default_rng(1)
+    n = 300
+    q = rng.standard_normal((n, 4)).astype(np.float32)
+    raw = [rng.uniform(-1, 1, (n, 3)), q / np.linalg.norm(q, axis=1)[:, None],
+           rng.uniform(0.02, 0.1, (n, 3)), rng.uniform(0.2, 0.9, n),
+           rng.standard_normal((n, 4, 3)) * 0.3]
+    make = lambda: [torch.tensor(a, dtype=torch.float32, requires_grad=True) for a in raw]
+    a = _gut_render(make())
+    with trace.recording() as rec:
+        b = _gut_render(make())
+    _bitwise(a, b)
+    parents, order = _tree(rec)
+    assert order == ["project", "project.ut", "project.sh", "project.rays", "plan", "sort",
+                     "composite", "composite.bwd", "reduce.bwd", "project.bwd"]
+    for child, parent in [("project.ut", "project"), ("project.rays", "project"),
+                          ("reduce.bwd", "composite.bwd")]:
+        assert (child, parent) in parents
+    assert [c.name for c in rec.counters] == ["project.ut", "plan.isects", "plan.capacity"]
+    assert rec.counters[0].value == 1 * n and rec.counters[1].value > 0
