@@ -354,6 +354,16 @@ K1_FLOP_PER_PAIR = 21  # ~20 f32 operations and one exp per (pixel, slot)
 PROJECT_OUT_BYTES = 48
 PROJECT_FLOP_PER_ROW = 200
 SH3_FLOP_PER_ROW = 150
+# its backward (csrc/projection_bwd.cu) a (camera, gaussian): the inputs'
+# 11 float32 fields, the cotangents' 10 floats and the radii read, the 11
+# gradients written, with 48 coefficients (degree 3) written for every row
+# and read for a kept one; the replay (~200 operations), its vector-Jacobian
+# product (~300), and a kept row's SH replay and product (~150 + ~250)
+PROJECT_FIELD_BYTES = 44
+PROJECT_BWD_BYTES = PROJECT_FIELD_BYTES + 40 + 8 + PROJECT_FIELD_BYTES + 192
+PROJECT_BWD_FLOP_PER_ROW = 500
+SH3_BWD_FLOP_PER_ROW = 400
+PROJECT_GRAD_RTOL = 5e-4  # of each leaf's largest entry: tests/test_torch_port_rules.py
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -395,8 +405,11 @@ KERNELS = {
     "expand_emission_packed": ("csrc/expand.cu", "gsplat_tpu/ops/gather_pallas.py:691"),
     "rasterize_fwd_packed": ("csrc/rasterize_fwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:399"),
     "rasterize_bwd_packed": ("csrc/rasterize_bwd.cu", "gsplat_tpu/ops/rasterize_pallas.py:613"),
-    # replaces no Pallas kernel: the JAX package leaves projection and SH to XLA
+    # replaces no Pallas kernel: the JAX package leaves projection and SH, and
+    # their gradients, to XLA
     "project_shade": ("csrc/projection_fwd.cu", "none (gsplat_tpu/rendering.py, XLA)"),
+    "project_shade_bwd": ("csrc/projection_bwd.cu",
+                          "none (gsplat_tpu/rendering.py, XLA's autodiff)"),
 }
 # Each kernel's launch count: (wrapper, attribute); a packed mode counts on
 # the wrapper of its kernel, in `launches_packed`.
@@ -415,7 +428,8 @@ COUNTERS = {"expand_rows": (gk.expand_rows, "launches"),
             "expand_emission_packed": (gk.expand_emission, "launches_packed"),
             "rasterize_fwd_packed": (rk.rasterize_fwd, "launches_packed"),
             "rasterize_bwd_packed": (rk.rasterize_bwd, "launches_packed"),
-            "project_shade": (pk.project_shade, "launches")}
+            "project_shade": (pk.project_shade, "launches"),
+            "project_shade_bwd": (pk.project_shade_bwd, "launches")}
 
 
 def reset_launches() -> None:
@@ -434,8 +448,9 @@ def read_launches() -> dict:
 EXACT_RENDER_KERNELS = ("expand_rows", "expand_emission", "rasterize_fwd")
 SERVING_KERNELS = ("project_shade", "expand_rows", "expand_emission_packed",
                    "rasterize_fwd_packed")
-TRAINING_KERNELS = ("expand_rows", "expand_emission_packed", "rasterize_fwd_packed",
-                    "rasterize_bwd_packed", "segment_rowsum")
+TRAINING_KERNELS = ("project_shade", "project_shade_bwd", "expand_rows",
+                    "expand_emission_packed", "rasterize_fwd_packed", "rasterize_bwd_packed",
+                    "segment_rowsum")
 SURFEL_KERNELS = ("expand_emission_aabb", "gather_records", "rasterize2d_fwd", "rasterize2d_bwd",
                   "segment_rowsum")
 SURFEL_STEPS = 9
@@ -476,6 +491,7 @@ AV_KERNELS = EXACT_RENDER_KERNELS + ("rasterize_bwd", "segment_rowsum") + EVAL3D
 MAIN_PATH = {**{k: "serving" for k in SERVING_KERNELS},
              "expand_emission": "serving_exact", "rasterize_fwd": "serving_exact",
              "rasterize_bwd_packed": "training", "segment_rowsum": "training",
+             "project_shade_bwd": "training",
              "rasterize_bwd": "av",
              **{k: "2dgs" for k in SURFEL_KERNELS if k != "segment_rowsum"},
              "rasterize_eval3d_fwd": "3dgut", "rasterize_eval3d_bwd": "3dgut"}
@@ -1455,7 +1471,50 @@ def check_and_time_training_kernels(tr, probes, exact_probes, launches, serving_
     ]
     records[-1]["runs"] = run_lengths(seg_bounds)
     records[0]["plain_on"] = f"{tiles.numel()} of {counts.shape[0]} tiles"
+    records.append(projection_grad_record(tr, launches, timer, log))
     return records
+
+
+def projection_grad_record(tr, launches, timer, log) -> dict:
+    """The training route's backward kernel (csrc/projection_bwd.cu) on the
+    trained state's fields, as the trainer passes them, at its first view:
+    each leaf's gradient within PROJECT_GRAD_RTOL of the largest entry of
+    autograd's through the plain route on the same device, for seeded
+    cotangents; the forward kernel on the same float32 fields timed beside
+    it (`fwd_ms`, `fwd_bound_ms`, `fwd_plain_ms`)."""
+    p, dev = tr.params, tr.device
+    fields = (p["means"], p["quats"], torch.exp(p["scales"]),
+              torch.where(tr.alive, torch.sigmoid(p["opacities"]), 0.0),
+              torch.cat([p["sh0"], p["shN"]], dim=1))
+    v = tr.train_views[0]
+    args = (*fields, torch.from_numpy(tr.viewmats[v:v + 1]).to(dev),
+            torch.from_numpy(tr.Ks[v:v + 1]).to(dev), tr.width, tr.height)
+    kw = dict(sh_degree=3, near_plane=tr.cfg.near_plane, far_plane=tr.cfg.far_plane)
+    out = pk.project_shade(*args, **kw)
+    g = torch.Generator(device=dev).manual_seed(0)
+    cots = [torch.randn(o.shape, generator=g, device=dev) for o in out[1:]]
+    cots[2] *= 1e-3  # conics are ~1e3 times the means2d's scale
+    bwd = lambda: pk.project_shade_bwd(*args[:7], out[0], *cots, *args[7:], **kw)
+    bwd_plain = lambda: pk.project_shade_bwd_plain(*args[:7], out[0], *cots, *args[7:], **kw)
+    gaps = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for a, b in zip(bwd(), bwd_plain())]
+    require(max(gaps) <= PROJECT_GRAD_RTOL,
+            f"project_shade_bwd's gradients are {gaps} of their largest entries off")
+    n_rows = fields[0].shape[0]
+    n_kept = int((out[0] > 0).all(dim=-1).sum())
+    log(f"project_shade_bwd at {tr.width}x{tr.height}: {n_kept} of {n_rows} kept, gaps by leaf "
+        + json.dumps(gaps))
+    rec = kernel_record("project_shade_bwd", launches["project_shade_bwd"], max(gaps),
+                        timer(bwd, 20), timer(bwd_plain, 1, warm=False),
+                        n_rows * PROJECT_BWD_BYTES + n_kept * 192,
+                        n_rows * PROJECT_BWD_FLOP_PER_ROW + n_kept * SH3_BWD_FLOP_PER_ROW)
+    rec["kept"] = n_kept
+    rec["fwd_ms"] = timer(lambda: pk.project_shade(*args, **kw), 20)
+    rec["fwd_plain_ms"] = timer(lambda: pk.project_shade_plain(*args, **kw), 1, warm=False)
+    rec["fwd_bound_ms"] = bound_ms(n_rows * (PROJECT_FIELD_BYTES + PROJECT_OUT_BYTES)
+                                   + n_kept * 192,
+                                   n_rows * PROJECT_FLOP_PER_ROW + n_kept * SH3_FLOP_PER_ROW)
+    return rec
 
 
 def profile_training_step(tr, vms, Ks, targets, timer, log) -> None:
@@ -2674,8 +2733,14 @@ def addons_phase(dev, data_dir: str, wh, plain_ms, plain_shn, log):
     for r, a in zip(hist, recorder.addon_checks):
         log("addons_train " + json.dumps({**r, "addon_grads": a}))
     log("addons training launches " + json.dumps(launches))
+    # the pose deltas need the cameras' gradient and the appearance head's
+    # colours are not SH: the projection takes the PyTorch route
+    # (rendering.py:_grad_route), and its backward kernel must not launch
+    require(launches["project_shade_bwd"] == 0,
+            "project_shade_bwd launched on the add-ons path, whose cameras need a gradient")
     for name in TRAINING_KERNELS:
-        require(launches[name] > 0, f"kernel {name} was not launched on the add-ons path")
+        if name != "project_shade_bwd":
+            require(launches[name] > 0, f"kernel {name} was not launched on the add-ons path")
     require(len(hist) == ADDON_STEPS == len(recorder.addon_checks),
             f"{len(hist)} add-on steps ran")
     for r, a in zip(hist, recorder.addon_checks):

@@ -65,9 +65,11 @@ SOURCE_FLAGS: Dict[str, List[str]] = {
     # compiled alike, for the same reason
     "rasterize_eval3d_fwd": [],
     "rasterize_eval3d_bwd": [],
-    # the no-grad projection rounds each operation explicitly
-    # (csrc/projection.cuh), as the plain PyTorch route does
+    # the projection pass rounds each operation explicitly
+    # (csrc/projection.cuh), as the plain PyTorch route does; its backward
+    # replays it from the same header
     "projection_fwd": [],
+    "projection_bwd": [],
 }
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -240,6 +242,10 @@ _SIGNATURES = {
         "gs_project_shade": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _LL, _INT, _INT,
                              _INT, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _INT,
                              _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID],
+    },
+    "projection_bwd": {
+        "gs_project_shade_bwd": [_VOID] * 13 + [_LL, _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT,
+                                                _INT] + [_VOID] * 6,
     },
 }
 

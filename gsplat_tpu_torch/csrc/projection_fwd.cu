@@ -1,5 +1,5 @@
-// The no-grad projection and SH colours for Hopper: sanitise, project, cull
-// and shade every (camera, gaussian) in one pass.
+// The projection and SH colours for Hopper: sanitise, project, cull and
+// shade every (camera, gaussian) in one pass.
 //
 // Replaces no Pallas kernel: the JAX package leaves the projection and the
 // SH evaluation to XLA, which fuses their elementwise graph.  In the port
@@ -8,8 +8,8 @@
 // covariance, the conics and the [N, 16, 3] SH products in device memory),
 // 50 to 200 times the bytes the function needs.  This kernel serves the
 // route that needs no gradient (rendering.py: the serving path, the
-// viewer, no-grad evaluation renders and capacity sizing); the training
-// route keeps the differentiable PyTorch code.
+// viewer, no-grad evaluation renders and capacity sizing) and the forward
+// of the training route, whose backward is projection_bwd.cu.
 //
 // Numeric contract: csrc/projection.cuh, the plain route operation for
 // operation, so the radii, means2d, depths, conics and opacities equal the

@@ -30,7 +30,14 @@ import torch
 from .ops.projection import fully_fused_projection
 from .ops.projection2d import fully_fused_projection_2dgs
 from .ops.projection_kernel import campos_from_viewmats as _campos_from_viewmats  # noqa: F401
-from .ops.projection_kernel import FIELD_DTYPES, project_shade, sanitize, sh_colors, widen
+from .ops.projection_kernel import (
+    FIELD_DTYPES,
+    project_shade,
+    project_shade_grad,
+    sanitize,
+    sh_colors,
+    widen,
+)
 from .ops.projection_ut import fully_fused_projection_ut
 from .ops.rasterize import TILE, _round_up, rasterize_to_pixels, rasterize_to_pixels_fast
 from .ops.rasterize2d import rasterize_to_pixels_2dgs
@@ -112,21 +119,14 @@ def _broadcast_feats(x, batch_dims, C, N, I):
     return x.expand(batch_dims + (C, N, x.shape[-1])).reshape(I, N, -1)
 
 
-def _fused_route(means, quats, scales, opacities, colors, viewmats, Ks, sh_degree, covars,
-                 camera_model, with_ut, with_eval3d, extra_signals, means2d_offset,
-                 masks) -> bool:
-    """Whether the projection and SH colours take the one-pass route
-    (ops/projection_kernel.py:project_shade): nothing they feed needs a
-    gradient, and the call is the case that pass implements, unbatched
-    gaussians with quaternions and scales seen by pinhole cameras, float32
-    or bfloat16 fields and SH colours of 3 channels shared by the cameras.
-    Every other call takes the differentiable route."""
-    inputs = (means, quats, scales, opacities, colors, viewmats, Ks)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
-        return False
+def _one_pass_case(means, quats, scales, opacities, colors, viewmats, Ks, sh_degree, covars,
+                   camera_model, with_ut, with_eval3d, extra_signals, masks, dtypes) -> bool:
+    """Whether the call is the case the one projection pass implements
+    (ops/projection_kernel.py): unbatched gaussians with quaternions and
+    scales seen by pinhole cameras, fields of `dtypes`, float32 cameras and
+    SH colours of 3 channels shared by the cameras."""
     if (covars is not None or quats is None or scales is None or camera_model != "pinhole"
-            or with_ut or with_eval3d or extra_signals is not None
-            or means2d_offset is not None or masks is not None):
+            or with_ut or with_eval3d or extra_signals is not None or masks is not None):
         return False
     if means.dim() != 2 or opacities.dim() != 1 or viewmats.dim() != 3:
         return False
@@ -135,8 +135,43 @@ def _fused_route(means, quats, scales, opacities, colors, viewmats, Ks, sh_degre
         if colors.dim() != 3 or colors.shape[-1] != 3:
             return False
         fields += (colors,)
-    return (all(t.dtype in FIELD_DTYPES for t in fields)
+    return (all(t.dtype in dtypes for t in fields)
             and viewmats.dtype == torch.float32 and Ks.dtype == torch.float32)
+
+
+def _fused_route(means, quats, scales, opacities, colors, viewmats, Ks, sh_degree, covars,
+                 camera_model, with_ut, with_eval3d, extra_signals, means2d_offset,
+                 masks) -> bool:
+    """Whether the projection and SH colours take the one-pass route without
+    autograd (ops/projection_kernel.py:project_shade): nothing they feed
+    needs a gradient, and the call is the pass's case (`_one_pass_case`)
+    with float32 or bfloat16 fields.  Every other call takes the
+    differentiable route."""
+    inputs = (means, quats, scales, opacities, colors, viewmats, Ks)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        return False
+    return means2d_offset is None and _one_pass_case(
+        means, quats, scales, opacities, colors, viewmats, Ks, sh_degree, covars, camera_model,
+        with_ut, with_eval3d, extra_signals, masks, FIELD_DTYPES)
+
+
+def _grad_route(means, quats, scales, opacities, colors, viewmats, Ks, sh_degree, covars,
+                camera_model, with_ut, with_eval3d, extra_signals, masks) -> bool:
+    """Whether the projection and SH colours take the training route
+    (ops/projection_kernel.py:project_shade_grad, one kernel each way): a
+    gaussian field or the colours need a gradient and the cameras do not,
+    the colours are SH or absent, and the call is the pass's case
+    (`_one_pass_case`) with float32 fields.  `means2d_offset` and `absgrad`
+    ride on its means2d as on the PyTorch route's."""
+    if not torch.is_grad_enabled() or not any(
+            t is not None and t.requires_grad
+            for t in (means, quats, scales, opacities, colors)):
+        return False
+    if viewmats.requires_grad or Ks.requires_grad or (colors is not None and sh_degree is None):
+        return False
+    return _one_pass_case(means, quats, scales, opacities, colors, viewmats, Ks, sh_degree,
+                          covars, camera_model, with_ut, with_eval3d, extra_signals, masks,
+                          (torch.float32,))
 
 
 def rasterization(
@@ -220,9 +255,12 @@ def rasterization(
     A call whose projection needs no gradient (grad mode off, or no input
     requiring it) and that is the plain pinhole case takes the one-pass
     projection and SH colours (ops/projection_kernel.py, `_fused_route`):
-    the same radii, means2d, depths, conics and opacities, bit for bit.
-    Every other call runs the differentiable PyTorch route, which widens
-    bfloat16 fields to float32 first.
+    the same radii, means2d, depths, conics and opacities, bit for bit.  A
+    training call of that case (float32 fields needing a gradient, cameras
+    that need none, SH colours or none) takes the same pass with one
+    backward kernel (`_grad_route`).  Every other call runs the
+    differentiable PyTorch route, which widens bfloat16 fields to float32
+    first.
 
     `packed`, `sparse_grad`, `channel_chunk`, `distributed` and `segmented`
     sit where the JAX package's `rasterization` has them and behave as
@@ -293,16 +331,22 @@ def rasterization(
             sh_degree, covars, camera_model, with_ut, with_eval3d, extra_signals,
             means2d_offset, masks,
         )
+        trained = not fused and _grad_route(
+            means, quats, scales, opacities, colors if has_color else None, viewmats, Ks,
+            sh_degree, covars, camera_model, with_ut, with_eval3d, extra_signals, masks,
+        )
         sh_done = None
-        if fused:
-            # one pass, no autograd: ops/projection_kernel.py
-            radii, means2d, depths, conics, op, sh_done = project_shade(
+        if fused or trained:
+            # one pass: ops/projection_kernel.py, without autograd, or with
+            # its backward kernel on the training route
+            shade = project_shade_grad if trained else project_shade
+            radii, means2d, depths, conics, op, sh_done = shade(
                 means, quats, scales, opacities,
                 colors if has_color and sh_degree is not None else None, viewmats, Ks, width,
                 height, sh_degree=sh_degree, eps2d=eps2d, near_plane=near_plane,
                 far_plane=far_plane, radius_clip=radius_clip, antialiased=calc_compensations,
             )
-            count("project.fused", I * N)
+            count("project.fused_grad" if trained else "project.fused", I * N)
             if sh_degree is None:
                 colors = widen(colors)  # colours without SH are broadcast as float32
         else:

@@ -19,7 +19,10 @@ these spans (PERF.md §3 names the layer of each):
     `composite.bwd`, `reduce.bwd` and `project.bwd`;
   * after it: `optimizer`, `strategy`;
   * counters `plan.isects` (each plan's intersections) and `plan.capacity`
-    (the slots its emission and sort are sized for).
+    (the slots its emission and sort are sized for); `project.fused` and
+    `project.fused_grad` (the (camera, gaussian) rows the projection pass
+    projects without autograd, and on the training route with its backward
+    kernel), `project.ut` (the rows through the UT's sigma points).
 
 With no recording open and no profiler active a span costs a check of
 those two flags: no object, no timestamp, no hook.  Spans take their

@@ -58,6 +58,7 @@ KERNELS = {
     "K5": (re.compile(r"segment_rowsum"), {"reduce.bwd"}),
     "radix sort": (re.compile(r"RadixSort"), {"sort"}),
     "project_shade": (re.compile(r"project_shade_kernel"), {"project"}),
+    "project_shade_bwd": (re.compile(r"project_shade_bwd_kernel"), {"project.bwd"}),
 }
 
 

@@ -1434,3 +1434,140 @@ def test_projection_kernel_radii_at_the_serving_shape():
         assert bool((got[0] > 0).all(-1).any())
         assert (got[5] - want[5]).abs().max().item() <= 1e-5
         del got, want
+
+
+@pytest.mark.parametrize("kernel, source", [("project_shade", "projection_fwd.cu"),
+                                            ("project_shade_bwd", "projection_bwd.cu")])
+def test_projection_kernels_have_plain_versions_counters_and_source_notes(kernel, source):
+    """Each projection kernel's wrapper has its plain version beside it and
+    counts its launches; its source opens with what it replaces, what bounds
+    it on the card and its design."""
+    from gsplat_tpu_torch.ops import projection_kernel as pk
+
+    assert callable(getattr(pk, f"{kernel}_plain"))
+    assert isinstance(getattr(pk, kernel).launches, int)
+    note = (ROOT / "gsplat_tpu_torch" / "csrc" / source).read_text().split("#include")[0]
+    for part in ("Replaces no Pallas kernel", "What bounds it on the H100", "Design."):
+        assert part in note, part
+
+
+# The gradients of the training route's kernels against autograd through the
+# plain route on the card, as a share of each leaf's largest entry: float32
+# both, summed in other orders.  On the CPU (the backward's arithmetic
+# compiled for the host) both sit as far from a float64 autograd, up to
+# 4.6e-5 classic and 6.5e-4 antialiased, where the compensation divides two
+# determinants that nearly cancel; kernel against autograd, 3e-5 and 1.7e-4.
+GRAD_RTOL = {False: 5e-4, True: 3e-3}
+
+
+def _grad_gaps(got, want):
+    return [float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("antialiased", [False, True], ids=["classic", "antialiased"])
+@pytest.mark.parametrize("C", [1, 2])
+def test_projection_grad_kernels_match_autograd_on_the_card(deg, antialiased, C):
+    """The training route (ops/projection_kernel.py:project_shade_grad) on
+    the card, on tests/test_torch_projection_grad.py's seeded case with its
+    degenerate rows: the forward kernel's radii, means2d, depths, conics and
+    opacities equal the plain version's bit for bit, its colours within
+    1e-5; the backward kernel's gradient of each leaf is within GRAD_RTOL of
+    the leaf's largest entry of autograd's through the plain route
+    (project_shade_bwd_plain), and zero where autograd's is: sanitised rows,
+    coefficient rows past (deg + 1)^2.  One launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from gsplat_tpu_torch.ops import projection_kernel as pk
+    from test_torch_projection_grad import LEAVES, SANITISED, grad_case
+    from test_torch_projection_kernel import project_args, same_bits
+
+    s, cots = grad_case(20000, C, deg, device="cuda")
+    args, kw = project_args(s, deg, antialiased)
+    leaves = [s[k].clone().requires_grad_(True) for k in LEAVES]
+    launches = pk.project_shade.launches, pk.project_shade_bwd.launches
+    out = pk.project_shade_grad(*leaves, *args[5:], **kw)
+    grads = torch.autograd.grad(out[1:], leaves, cots)
+    torch.cuda.synchronize()
+    assert (pk.project_shade.launches, pk.project_shade_bwd.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    want = pk.project_shade_plain(*args, **kw)
+    for name, x, y in zip(("radii", "means2d", "depths", "conics", "op"), out, want):
+        assert same_bits(x, y), name
+    assert (out[5] - want[5]).abs().max().item() <= 1e-5
+    want_grads = pk.project_shade_bwd_plain(*args[:7], out[0], *cots, *args[7:], **kw)
+    gaps = _grad_gaps(grads, want_grads)
+    print(f"deg {deg} {'antialiased' if antialiased else 'classic'} C {C}: "
+          + ", ".join(f"{k} {g:.2e}" for k, g in zip(LEAVES, gaps)))
+    assert all(g <= GRAD_RTOL[antialiased] for g in gaps), dict(zip(LEAVES, gaps))
+    for name, g in zip(LEAVES, grads):
+        assert not bool(g[SANITISED].any()), name
+    assert not bool(grads[4][:, (deg + 1) ** 2:].any())
+    assert bool((out[0] > 0).all(-1).any())
+
+
+@pytest.mark.gpu
+def test_projection_grad_kernels_at_the_training_shape():
+    """The training cell's scene (2,794,625 gaussians, SH 3) as the trainer
+    passes it (float32 activations of its parameters) to two of its
+    3840x2160 views, with seven rows made degenerate (a NaN and an infinite
+    mean, a zero and a NaN quaternion, a NaN scale and opacity) and one on
+    the first camera's plane: the forward bit for bit and the gradients of
+    random cotangents within GRAD_RTOL["classic"] of autograd's through the
+    plain route, zero on the degenerate rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+
+    from benchmark.harness import scene as bench_scene
+    from benchmark.harness import traffic
+    from gsplat_tpu_torch.ops import projection_kernel as pk
+    from test_torch_projection_kernel import same_bits
+
+    cfg = json.loads((ROOT / "benchmark" / "configs" / "grid5-3dgs.json").read_text())
+    mix = json.loads((ROOT / "benchmark" / "traffic" / "train-4k.json").read_text())
+    raw = bench_scene.make_scene(cfg, 2147483647 + 23, "cuda")
+    cams = traffic.cameras(mix, raw["means"])
+    N = raw["means"].shape[0]
+    fields = dict(means=raw["means"].clone(), quats=raw["quats"].clone(),
+                  scales=torch.exp(raw["scales"]), opacities=torch.sigmoid(raw["opacities"]),
+                  coeffs=torch.cat([raw["sh0"], raw["shN"]], dim=1))
+    del raw
+    nan = float("nan")
+    fields["means"][0, 0] = nan
+    fields["means"][1, 2] = float("inf")
+    fields["quats"][2] = 0.0
+    fields["quats"][3, 1] = nan
+    fields["scales"][4, 0] = nan
+    fields["opacities"][5] = nan
+    fields["opacities"][6] = nan
+    vm = cams.viewmats[[0, 7]]
+    # row 7 on the first camera's plane: its camera-frame depth is 0
+    R, t = vm[0, :3, :3], vm[0, :3, 3]
+    fields["means"][7] = R.T @ (torch.tensor([0.5, 0.2, 0.0], device="cuda") - t)
+    Ks = cams.K[None].expand(2, 3, 3).contiguous()
+    kw = dict(sh_degree=3, near_plane=cfg["near_plane"], far_plane=cfg["far_plane"],
+              radius_clip=cfg["train_radius_clip"])
+    names = ("means", "quats", "scales", "opacities", "coeffs")
+    leaves = [fields[k].clone().requires_grad_(True) for k in names]
+    out = pk.project_shade_grad(*leaves, vm, Ks, mix["width"], mix["height"], **kw)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cots = [torch.randn(o.shape, generator=g, device="cuda") for o in out[1:]]
+    cots[2] *= 1e-3
+    grads = torch.autograd.grad(out[1:], leaves, cots)
+    args = (*(fields[k] for k in names), vm, Ks, mix["width"], mix["height"])
+    want = pk.project_shade_plain(*args, **kw)
+    for name, x, y in zip(("radii", "means2d", "depths", "conics", "op"), out, want):
+        assert same_bits(x, y), name
+    assert (out[5] - want[5]).abs().max().item() <= 1e-5
+    del want
+    want_grads = pk.project_shade_bwd_plain(*args[:7], out[0], *cots, *args[7:], **kw)
+    gaps = _grad_gaps(grads, want_grads)
+    print("training shape: " + ", ".join(f"{k} {v:.2e}" for k, v in zip(names, gaps)))
+    assert all(v <= GRAD_RTOL[False] for v in gaps), dict(zip(names, gaps))
+    for name, x in zip(names, grads):
+        assert not bool(x[:7].any()), name
+    visible = (out[0] > 0).all(-1)
+    assert 0 < int(visible.sum()) < 2 * N and not bool(visible[:, :7].any())
